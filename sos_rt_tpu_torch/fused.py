@@ -1,0 +1,344 @@
+"""Batched whole-solve entry point: the streamed mega engine.
+
+Counterpart of the mega part of ``sos_rt_tpu/fused.py``:
+:class:`SweepSummary`, :func:`solve_batch_mega` (the streamed execution,
+``i1='kernel'``) and :func:`predict_order_count`.
+
+Host preparation (τ profiles, mixing weights, pack rows, the in-kernel
+I₁ inputs, the static and stacked operators) follows the TPU package
+step for step; the order loop runs in ``ops/megastream.py``.  Routes the
+port does not run yet raise :class:`~sos_rt_tpu_torch.config.NotPortedError`
+instead of falling back: a grid that fails ``mega_supported``,
+``stream=False`` (the resident kernel) and ``i1='host'``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from sos_rt_tpu_torch.config import (SCENE_FIELDS, GridSpec, NotPortedError,
+                                     Scene, SolverOptions, full_precision_matmul,
+                                     resolve_device, torch_dtype)
+from sos_rt_tpu_torch.grids import tau_profile
+from sos_rt_tpu_torch.ops import megakernel as mk
+from sos_rt_tpu_torch.ops import megastream as ms
+from sos_rt_tpu_torch.ops.first_order import first_order_mega_inputs
+from sos_rt_tpu_torch.ops.source import source_operator
+from sos_rt_tpu_torch.ops.sweeps import band_choice, stencils_for
+from sos_rt_tpu_torch.solver import PhaseTables, Solution
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepSummary:
+    """Reduced sweep solution: only the rows every sweep reduction reads
+    (TOA up-flux, surface down-flux, forcing, critical albedo)."""
+
+    i_toa: Any          # (B, 2M) total radiance row at τ=0
+    i_surface: Any      # (B, 2M) total radiance row at τ*
+    n_orders: Any       # (B,)
+    converged: Any      # (B,) bool
+    tau: Any            # (B, L)
+    idx_up: Any
+    idx_down: Any
+
+
+PREDICT_MIN_BATCH = 4096      # below this the predictor solve isn't worth it
+PREDICT_ANGLES = 8            # coarse predictor grid (µ nodes per half)
+PREDICT_LAYERS = 16
+PLANE_BUDGET = 256 * 2 ** 20  # bytes of one half-field plane per block
+MAX_COLS_PER_BLOCK = 1024
+
+
+def scene_on(scenes: Scene, device) -> Scene:
+    """Scene fields as float64 tensors of one batch shape on ``device``."""
+    t = scenes.map(lambda x: torch.as_tensor(x, dtype=torch.float64, device=device))
+    shape = torch.broadcast_shapes(*(getattr(t, f).shape for f in SCENE_FIELDS))
+    if len(shape) != 1:
+        raise ValueError(f"scene fields must share one batch axis; got {shape}")
+    return t.map(lambda x: x.expand(shape).contiguous())
+
+
+def tables_on(tables: PhaseTables, device) -> PhaseTables:
+    return PhaseTables(*(torch.as_tensor(getattr(tables, f.name), device=device)
+                         for f in dataclasses.fields(PhaseTables)))
+
+
+def take_columns(x, idx):
+    """Columns ``idx`` of a SweepSummary / Solution / Scene."""
+    if isinstance(x, Scene):
+        return x.map(lambda v: v[idx])
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name)[idx] for f in dataclasses.fields(x)
+        if getattr(x, f.name) is not None})
+
+
+def default_cols_per_block(nb_layers: int, mp: int, dtype: torch.dtype) -> int:
+    """Largest power of two of columns whose (L, C, Mp) plane fits
+    PLANE_BUDGET, capped at MAX_COLS_PER_BLOCK (128 at the 501×800 grid
+    in float32, 1024 at 64×128)."""
+    per_col = nb_layers * mp * torch.finfo(dtype).bits // 8
+    fit = max(1, min(MAX_COLS_PER_BLOCK, PLANE_BUDGET // per_col))
+    return 1 << (fit.bit_length() - 1)
+
+
+def predict_order_count(scenes: Scene, tables: PhaseTables, grid: GridSpec,
+                        opts: SolverOptions, min_batch: int | None = None,
+                        device=None):
+    """Per-column scattering-order prediction by a coarse-grid solve.
+
+    Solves the same physics on the 8×16 grid whose tables are subsampled
+    from the caller's (uniform grids; nearest nodes when (M-1) is not a
+    multiple of 7), with the same kernels.  Returns the (B,) coarse order
+    counts, or None when prediction does not apply: batches below
+    ``min_batch`` (default 4096), non-uniform grids, M ≤ 8, and float64
+    on a card (a verification dtype, not worth a predictor)."""
+    device = resolve_device(device)
+    B = torch.as_tensor(scenes.mu0).reshape(-1).shape[0]
+    if min_batch is None:
+        min_batch = PREDICT_MIN_BATCH
+    if (B < min_batch or grid.spacing != "uniform" or grid.nb_angles <= PREDICT_ANGLES
+            or (opts.dtype == "float64" and device.type == "cuda")):
+        return None
+    cg, ct = coarse_problem(tables, grid, device)
+    sol = solve_batch_mega(scenes, ct, cg, opts, outputs="summary",
+                           cols_per_block=predict_cols_per_block(device),
+                           sort=False, device=device)
+    return sol.n_orders
+
+
+def predict_cols_per_block(device) -> int | None:
+    """The predictor's block size: 1024 columns on a card, the default
+    elsewhere."""
+    return MAX_COLS_PER_BLOCK if torch.device(device).type == "cuda" else None
+
+
+def coarse_problem(tables: PhaseTables, grid: GridSpec, device):
+    """The predictor's 8×16 grid and the caller's tables subsampled to it
+    (every (M-1)/7-th node, or the nearest nodes when 7 does not divide
+    M-1)."""
+    m, mc = grid.nb_angles, PREDICT_ANGLES
+    if (m - 1) % (mc - 1) == 0:
+        idx = np.arange(0, m, (m - 1) // (mc - 1))
+    else:
+        idx = np.round(np.linspace(0, m - 1, mc)).astype(np.int64)
+    full_idx = torch.as_tensor(np.concatenate([idx, m + idx]), device=device)
+    tables = tables_on(tables, device)
+    sub = lambda p: p[full_idx][:, full_idx]
+    ct = PhaseTables(p0_atm=tables.p0_atm[..., full_idx], p_atm=sub(tables.p_atm),
+                     p0_aer=tables.p0_aer[..., full_idx], p_aer=sub(tables.p_aer))
+    return GridSpec(nb_angles=mc, nb_layers=PREDICT_LAYERS), ct
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamBatch:
+    """A prepared batch for the streamed order loop (the port's layout):
+    pack (PK_W, L, Bp), cpar (CP_W, Bp), tiles (NI, Bp, Mp), the per-solve
+    operators, and the τ profile; Bp pads the batch to a multiple of the
+    block size by repeating the last column."""
+
+    pack: Any
+    cpar: Any
+    tiles: Any
+    ops: ms.StreamOps
+    cols_per_block: int
+    batch: int
+    tau: Any
+    idx_up: Any
+    idx_down: Any
+
+    def block(self, i: int):
+        """(pack, cpar, tiles) of block ``i``, contiguous."""
+        return ms.block_of(self.pack, self.cpar, self.tiles, i, self.cols_per_block)
+
+
+def prepare_stream(scenes: Scene, tables: PhaseTables, grid: GridSpec,
+                   opts: SolverOptions, mm: str | None = None,
+                   cols_per_block: int | None = None, device=None) -> StreamBatch:
+    """Host preparation of the streamed mega solve (fused.py:230-450 of the
+    TPU package): dtype and mm resolution, batch padding, τ profiles,
+    mixing weights, pack rows, the in-kernel I₁ inputs and the operators.
+    ``scenes``/``tables`` must already be on ``device``."""
+    full_precision_matmul()
+    stencils = stencils_for(grid)
+    dtype = torch_dtype(opts.dtype)
+    if mm is None:                      # explicit arg wins over opts.mm
+        mm = opts.mm if dtype == torch.float32 else None
+    if mm is None:
+        mm = "bf16x3" if dtype == torch.float32 else "highest"
+    if dtype == torch.float64 and mm != "highest":
+        raise ValueError("float64 runs mm='highest' only")
+    L, M = grid.nb_layers, grid.nb_angles
+    MP = mk.pad_angles(M)
+    mu = torch.as_tensor(grid.mu(), dtype=dtype, device=device)
+    w_mu_np = np.asarray(grid.trapz_weights(), np.float64)
+    w_mu = torch.as_tensor(w_mu_np, dtype=dtype, device=device)
+    B = scenes.mu0.shape[0]
+    C = cols_per_block or default_cols_per_block(L, MP, dtype)
+    C = min(C, B)
+    pad = (-B) % C
+    if pad:   # repeat the last column; its results are trimmed below
+        last = torch.full((pad,), B - 1, device=device)
+        idx = torch.cat([torch.arange(B, device=device), last])
+        scenes = take_columns(scenes, idx)
+        tables = tables.take(idx)
+    Bp = B + pad
+
+    cast = lambda x: x.to(dtype)
+    tau, idx_up, idx_down = tau_profile(
+        cast(scenes.tau_star_atm), cast(scenes.tau_star_aer), cast(scenes.z0),
+        cast(scenes.z_up), cast(scenes.z_down), L)
+    tau = tau.to(dtype)
+    dtau_aer = scenes.tau_star_aer / (idx_down + 1 - idx_up)
+    dtau_atm = scenes.tau_star_atm / L
+    w_atm = (dtau_atm / (dtau_atm + dtau_aer)).to(dtype)
+    w_aer = (dtau_aer / (dtau_atm + dtau_aer)).to(dtype)
+
+    i1_pack, i1_tiles, colc_pk, i1_const, astack = first_order_mega_inputs(
+        opts.surface, tau, mu, M, scenes.mu0, scenes.grd_alb,
+        scenes.alb_atm, scenes.alb_aer, tables.p0_atm, tables.p_atm,
+        tables.p0_aer, tables.p_aer, idx_up, idx_down, w_atm, w_aer,
+        w_mu, dtype)
+
+    # ---- pack rows (PK_W, L, Bp) ----
+    t_idx = torch.arange(L, device=device)[:, None]
+    iu = idx_up[None, :]
+    idn = idx_down[None, :]
+    tau_t = tau.T                                           # (L, Bp)
+    drop = ((t_idx == idn) | (t_idx == iu - 1) | (t_idx == L - 1)).to(dtype)
+    ch2 = (t_idx < iu).to(dtype)
+    r1 = (t_idx == idn + 1).to(dtype)
+    r2 = (t_idx == iu).to(dtype)
+    dt = tau_t[1:] - tau_t[:-1]
+    zrow = torch.zeros((1, Bp), dtype=dtype, device=device)
+    hdt_dn = torch.cat([zrow, 0.5 * dt])
+    hdt_up = torch.cat([0.5 * dt, zrow])
+    in_layer = (t_idx >= iu) & (t_idx <= idn)
+    alb_atm = cast(scenes.alb_atm)[None, :]
+    alb_aer = cast(scenes.alb_aer)[None, :]
+    coef_atm = torch.where(in_layer, w_atm[None, :] * alb_atm / 4.0, alb_atm / 4.0)
+    coef_aer = torch.where(in_layer, w_aer[None, :] * alb_aer / 4.0, 0.0)
+    choice_a = band_choice(torch.gather(tau, 1, (idx_up - 1)[:, None])[:, 0]).to(dtype)
+    choice_bc = band_choice(torch.gather(tau, 1, idx_down[:, None])[:, 0]).to(dtype)
+    # localized affine-scan sources: down c_t = (hdt_dn+hdt_up)_t·jₙ_t;
+    # up c_t = (d_t·hdt_up_t + gs_t)·ivup·jₙ_t, gs_t = d_{t-1}·hdt_up_{t-1}
+    cdn = hdt_dn + hdt_up
+    dw = (1.0 - drop) * hdt_up
+    gs = torch.cat([zrow, dw[:-1]])
+    cup = dw + gs
+    # polyfit-band choice per (layer, column): variant A above the
+    # aerosol layer, variant B/C below
+    choice_res = torch.where(ch2 > 0.5, choice_a[None, :], choice_bc[None, :])
+    rows = [tau_t, hdt_dn, hdt_up, coef_atm, coef_aer, cdn, cup, gs, r1, r2,
+            choice_res] + [i1_pack[k] for k in mk.I1_PACK_KEYS]
+    rows += [torch.zeros((L, Bp), dtype=dtype, device=device)] * (mk.PK_W - len(rows))
+    pack = torch.stack(rows)
+
+    zb = torch.zeros((Bp,), dtype=dtype, device=device)
+    cpar = torch.stack([cast(scenes.grd_alb), i1_const.to(dtype)]
+                       + [zb] * (mk.CP_W - 2))
+
+    a_atm = source_operator(tables.p_atm.to(dtype), w_mu)
+    a_aer = source_operator(tables.p_aer.to(dtype), w_mu)
+    ws = mk.stack_source_operator(a_atm, a_aer, M, mm, dtype)
+    if MP != M:            # angle-pad the in-kernel I₁ inputs
+        i1_tiles = torch.nn.functional.pad(i1_tiles, (0, 0, 0, MP - M))
+        colc_pk = torch.nn.functional.pad(colc_pk, (0, MP - M))
+        if astack is not None:
+            astack = mk._pad_blocks(astack, M, MP, 4, 1)
+    astk = None
+    if astack is not None:
+        astk = mk._split_op(astack, mm, dtype, device)
+    sops = ms.StreamOps.build(grid, stencils, opts.surface, w_mu_np, ws, astk,
+                              colc_pk, mm=mm, dtype=dtype, device=device)
+    return StreamBatch(pack=pack, cpar=cpar,
+                       tiles=i1_tiles.transpose(1, 2).contiguous(), ops=sops,
+                       cols_per_block=C, batch=B, tau=tau, idx_up=idx_up,
+                       idx_down=idx_down)
+
+
+def sort_key(scenes: Scene, tables: PhaseTables, grid: GridSpec,
+              opts: SolverOptions, sort, device):
+    """The key columns are sorted by before blocking: for
+    ``sort='predict'`` the coarse-grid order count first and the
+    closed-form score second (the 1024 gap keeps the score term above
+    float32 ulp at count-scale magnitudes); otherwise, or when prediction
+    does not apply, the score alone."""
+    from sos_rt_tpu_torch.parallel.mesh import order_count_score
+
+    key = None
+    if sort == "predict":
+        key = predict_order_count(scenes, tables, grid, opts, device=device)
+    if key is None:
+        return order_count_score(scenes)
+    return key.to(torch.float32) * 1024.0 + order_count_score(scenes)
+
+
+def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
+                     opts: SolverOptions, cols_per_block: int | None = None,
+                     sort=True, mm: str | None = None, outputs: str = "full",
+                     i1: str = "kernel", allow_small: bool = False,
+                     stream: bool = True, device=None):
+    """Whole-solve streamed mega engine over (B,)-batched ``scenes``.
+
+    Each block of ``cols_per_block`` columns runs its own order loop;
+    per-column results do not depend on the block size or the order of
+    the columns.  ``sort`` pre-sorts columns by an order-count key so each
+    block's columns converge together (``True``: the closed-form score;
+    ``'predict'``: the coarse-grid pre-solve of
+    :func:`predict_order_count`, the score when that does not apply);
+    results come back in the caller's order.
+
+    ``mm``: 'bf16x3' (the float32 default), 'bf16x5' or 'highest'
+    (float64 always runs 'highest').  ``allow_small`` asserts that every
+    column's µ→0⁻ band covers the grid's small-µ columns
+    (parallel.mesh.mega_small_ok).  ``outputs``: 'full' → Solution,
+    'summary' → SweepSummary.  ``device`` defaults to CUDA.
+    """
+    if outputs not in ("full", "summary"):
+        raise ValueError(f"unknown outputs mode {outputs!r}")
+    if not stream:
+        raise NotPortedError("stream=False (the resident whole-loop kernel "
+                             "_mega_kernel) is not ported yet; see ROADMAP.md")
+    if i1 != "kernel":
+        raise NotPortedError(f"i1={i1!r}: only the in-kernel first order "
+                             "(i1='kernel') is ported; see ROADMAP.md")
+    device = resolve_device(device)
+    stencils = stencils_for(grid)
+    if not mk.mega_supported(grid, stencils, allow_small=allow_small):
+        raise NotPortedError(
+            f"{grid} needs the small-µ machinery of the fused engine "
+            "(mega_supported is false), which is not ported yet; see ROADMAP.md")
+    scenes = scene_on(scenes, device)
+    tables = tables_on(tables, device)
+
+    if sort:
+        key = sort_key(scenes, tables, grid, opts, sort, device)
+        perm = torch.argsort(key, stable=True)
+        inv = torch.argsort(perm, stable=True)
+        sol = solve_batch_mega(take_columns(scenes, perm), tables.take(perm),
+                               grid, opts, cols_per_block=cols_per_block,
+                               sort=False, mm=mm, outputs=outputs,
+                               allow_small=allow_small, device=device)
+        return take_columns(sol, inv)
+
+    sb = prepare_stream(scenes, tables, grid, opts, mm=mm,
+                        cols_per_block=cols_per_block, device=device)
+    res = ms.stream_order_loop(
+        sb.pack, sb.cpar, sb.tiles, sb.ops, tol=float(opts.tol),
+        max_orders=int(opts.max_orders), cols_per_block=sb.cols_per_block,
+        outputs=outputs)
+
+    stats = res[-1]
+    B, M = sb.batch, grid.nb_angles
+    common = dict(n_orders=stats[mk.ST_N].to(torch.int32)[:B],
+                  converged=(stats[mk.ST_CONV] > 0.5)[:B], tau=sb.tau[:B],
+                  idx_up=sb.idx_up[:B], idx_down=sb.idx_down[:B])
+    if outputs == "summary":
+        toa = torch.cat([res[0][:, :M], res[1][:, :M]], dim=1)[:B]
+        srf = torch.cat([res[2][:, :M], res[3][:, :M]], dim=1)[:B]
+        return SweepSummary(i_toa=toa, i_surface=srf, **common)
+    i_total = torch.cat([res[0][..., :M], res[1][..., :M]], dim=2)[:B]
+    return Solution(i_total=i_total, i1=None, **common)

@@ -1,0 +1,94 @@
+"""Phase-function model registry, strict dispatch, content-hashed cache.
+
+Counterpart of ``sos_rt_tpu/models/__init__.py``: unknown names raise,
+and tables are cached under a content hash of (model, grid, µ0, every
+parameter).  The Mie families (``mie``, ``lognormal`` and the ``eva`` /
+``wildfire`` aliases) are not ported yet and raise
+:class:`MieNotPortedError`.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+
+from sos_rt_tpu_torch.config import NotPortedError
+from sos_rt_tpu_torch.models.analytic import henyey_greenstein, isotropic, rayleigh
+from sos_rt_tpu_torch.models.fwc import fwc
+
+Tables = Tuple[np.ndarray, np.ndarray]
+
+
+class MieNotPortedError(NotPortedError):
+    """The Mie phase models (and their native core) are a later slice of
+    the port; see ROADMAP.md."""
+
+
+def _mie_not_ported(*args, **kwargs):
+    raise MieNotPortedError(
+        "the Mie phase models ('mie', 'lognormal', 'eva', 'wildfire') are "
+        "not ported to sos_rt_tpu_torch yet; see ROADMAP.md")
+
+
+# name → (builder, tuple of required param names)
+_REGISTRY: Dict[str, Tuple[Callable[..., Tables], Tuple[str, ...]]] = {
+    "iso": (lambda mu, mu0, **kw: isotropic(mu, mu0), ()),
+    "rayleigh": (lambda mu, mu0, **kw: rayleigh(mu, mu0), ()),
+    "hg": (lambda mu, mu0, *, g, **kw: henyey_greenstein(mu, mu0, g), ("g",)),
+    "fwc": (lambda mu, mu0, **kw: fwc(mu, mu0), ()),
+    "mie": (_mie_not_ported, ("indx", "r", "lambda0")),
+    "lognormal": (_mie_not_ported, ("lambda0", "indx", "n0", "r_m", "sig")),
+}
+_ALIASES = {"eva": "lognormal", "wildfire": "lognormal", "henyey_greenstein": "hg",
+            "isotropic": "iso"}
+
+
+def available_models():
+    return sorted(set(_REGISTRY) | set(_ALIASES))
+
+
+def _cache_dir() -> str:
+    return os.environ.get(
+        "SOS_RT_CACHE_DIR",
+        os.path.join(os.path.expanduser("~"), ".cache", "sos_rt_tpu_torch"),
+    )
+
+
+def _cache_key(kind: str, mu: np.ndarray, mu0: float, params: dict) -> str:
+    h = hashlib.sha256()
+    h.update(kind.encode())
+    h.update(np.ascontiguousarray(mu, dtype=np.float64).tobytes())
+    h.update(repr(float(mu0)).encode())
+    h.update(json.dumps({k: repr(v) for k, v in sorted(params.items())}).encode())
+    return h.hexdigest()[:32]
+
+
+def build_phase_tables(kind: str, mu: np.ndarray, mu0: float, *,
+                       cache: bool = True, **params) -> Tables:
+    """Build (or load from the content-addressed cache) the (P0, P) tables."""
+    kind = _ALIASES.get(kind, kind)
+    if kind not in _REGISTRY:
+        raise ValueError(f"unknown phase model {kind!r}; available: {available_models()}")
+    builder, required = _REGISTRY[kind]
+    missing = [p for p in required if params.get(p) is None]
+    if missing:
+        raise ValueError(f"phase model {kind!r} requires parameters {missing}")
+
+    if cache:
+        key = _cache_key(kind, mu, mu0, params)
+        path = os.path.join(_cache_dir(), f"{kind}_{key}.npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                return z["p0"].copy(), z["p"].copy()
+
+    p0, p = builder(np.asarray(mu, dtype=np.float64), float(mu0), **params)
+
+    if cache:
+        os.makedirs(_cache_dir(), exist_ok=True)
+        tmp = path + f".tmp{os.getpid()}.npz"  # savez appends .npz otherwise
+        np.savez_compressed(tmp, p0=p0, p=p)
+        os.replace(tmp, path)
+    return p0, p

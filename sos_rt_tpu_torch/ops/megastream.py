@@ -1,0 +1,356 @@
+"""Streamed whole-solve engine: the three kernels and the order loop.
+
+Counterpart of ``sos_rt_tpu/ops/megastream.py``.  Per block of C columns
+the two half-fields live in device memory as (L, C, Mp) tensors (angles
+last; Mp = pad_angles(M)), and each scattering order runs two passes:
+
+- :func:`passA` — the Jₙ source product W·[I↓; I↑] with the stacked
+  (4Mp, 2Mp) operator, mixed per (layer, column) by coef_atm/coef_aer,
+  then the downward recurrence r_t = e^{2·hdt_dn_t/µ}·r_{t−1} + cdn_t·jₙ↓_t.
+  Returns sdn = r − hdt_up·jₙ↓ and jₙ↑.
+- :func:`passB` — the surface BC from the deepest band-fixed I↓, then in
+  reverse over layers: I↓ = −sdn/µ with the µ→0⁻ band fix, the upward
+  recurrence with the µ=0⁺ row pinned to jₙ, the q1/q2 join corrections
+  and the µ→0⁺ smoothing walk.  Returns the new half-fields.
+
+:func:`passI` evaluates the closed-form first order that starts the loop.
+
+Each pass is a wrapper: on a CUDA tensor it launches the hand-written
+kernel of ``csrc/megastream.cu`` (or raises) and adds one to its
+``launches`` count; on a CPU tensor it runs the plain PyTorch version
+beside it (``passI_plain``, ``passA_plain``, ``passB_plain``), which is
+also what the kernels are held against on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sos_rt_tpu_torch.ops import cuda_build
+from sos_rt_tpu_torch.ops.megakernel import (
+    CP_CONST, CP_GRD, PK_ASTAR, PK_CDN, PK_CHOICE, PK_COEF_AER, PK_COEF_ATM,
+    PK_CUP, PK_GS, PK_HDT_DN, PK_HDT_UP, PK_R1, PK_R2, RC_EMU_DN, RC_EMU_UP,
+    RC_IVDN, RC_IVUP, RC_MUUP, RC_PKA, RC_PKR, ST_CONV, ST_N, ST_RATIO,
+    _dot3, _smooth_up, add_terms, angle_rows, band_fix_tile, band_validity,
+    bc_matrix, make_i1_block, ratio_rows_tile, split_parts, stencil_taps)
+from sos_rt_tpu_torch.ops.precision import split_bf16
+
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_MM_CODE = {"highest": 0, "bf16x3": 1, "bf16x5": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamOps:
+    """Per-solve constants of the three passes, as contiguous ``dtype``
+    tensors: the stacked operators as (hi, lo) pairs (hi is the operator
+    itself and lo a (1, 1) zero in mode 'highest'), the band stencil as
+    its ≤ 6 taps per row, and the BC matrix transposed."""
+
+    mm: str
+    nb_angles: int             # real angle count (rows ≥ it are pads)
+    lamb: bool
+    colc: torch.Tensor         # (7, Mp) per-angle rows, RC_* order
+    ws: tuple                  # stacked source operator (4Mp, 2Mp)
+    astk: tuple                # stacked surface operator (4Mp, Mp)
+    taps: tuple                # (cols int32, hi, lo), each (4·SLOT, 6)
+    pvt: torch.Tensor          # (4, Mp) placed-row validity per band choice
+    bct: tuple                 # BC matrix transposed, (hi, lo) each (Mp, Mp)
+
+    @property
+    def mp(self) -> int:
+        return self.colc.shape[1]
+
+    @property
+    def slot(self) -> int:
+        return self.taps[0].shape[0] // 4
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.colc.dtype
+
+    @classmethod
+    def build(cls, grid, stencils, surface: str, w_mu, ws, astk, colc_pk, *,
+              mm: str, dtype, device):
+        """From the grid, its stencils, the surface, the (2M,) quadrature
+        weights, the stacked source operator, the surface operator (None
+        for a specular surface) and the (2, Mp) excised-singularity rows."""
+        m = grid.nb_angles
+        mu = np.asarray(grid.mu(), np.float64)
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        colc = torch.cat([as_t(angle_rows(mu, m)), colc_pk.to(dtype)])
+        zero = torch.zeros((1, 1), dtype=dtype, device=device)
+        pair = lambda p: tuple(x.to(dtype).contiguous() for x in p)
+        bct = np.ascontiguousarray(bc_matrix(surface, w_mu, mu, m).T)
+        if mm == "highest":
+            bc_hi = as_t(bct)
+            bc_lo = torch.zeros_like(bc_hi)
+        else:
+            bc_hi, bc_lo = (p.to(dtype=dtype, device=device) for p in split_bf16(bct))
+        return cls(mm=mm, nb_angles=m, lamb=surface == "lambertian", colc=colc,
+                   ws=pair(ws), astk=pair(astk) if astk is not None else (zero, zero),
+                   taps=stencil_taps(stencils, mm, dtype, device),
+                   pvt=as_t(band_validity(stencils, m)), bct=(bc_hi, bc_lo))
+
+    def dot3(self, hi, lo, x):
+        return _dot3(hi, lo, x, mm=self.mm, dtype=self.dtype)
+
+
+# --------------------------------------------------------------------------
+# Plain versions (angles last: fields (L, C, Mp), pack (PK_W, L, C))
+# --------------------------------------------------------------------------
+
+def passI_plain(pack, tiles, cpar, ops: StreamOps):
+    """Closed-form I₁ → (fdn, fup), each (L, C, Mp)."""
+    Mp, mr = ops.mp, ops.nb_angles
+    rowf = torch.arange(Mp, device=pack.device)
+    row0, lastrow = rowf < 0.5, rowf > mr - 1.5
+    ivup = ops.colc[RC_IVUP]
+    i1_block = make_i1_block(
+        lambda i: tiles[i][None], ops.colc[RC_EMU_DN], ivup, row0, lastrow,
+        cpar[CP_CONST][:, None], ops.colc[RC_PKA], ops.colc[RC_PKR], ops.lamb)
+    s = lambda row: pack[row][..., None]
+    et = torch.where(row0, 0.0, torch.exp(s(PK_ASTAR) * ivup))
+    eout = None
+    if ops.lamb:
+        out = ops.dot3(*ops.astk, et)                     # (L, C, 4Mp)
+        eout = [out[..., k * Mp:(k + 1) * Mp] for k in range(4)]
+    return i1_block(s, eout, et)
+
+
+def passA_plain(pack, fdn, fup, ops: StreamOps):
+    """Jₙ source product + downward recurrence → (sdn, jnup)."""
+    Mp = ops.mp
+    out = ops.dot3(*ops.ws, torch.cat([fdn, fup], dim=-1))   # (L, C, 4Mp)
+    ca = pack[PK_COEF_ATM][..., None]
+    cr = pack[PK_COEF_AER][..., None]
+    jnd = ca * out[..., :Mp] + cr * out[..., 2 * Mp:3 * Mp]
+    jnu = ca * out[..., Mp:2 * Mp] + cr * out[..., 3 * Mp:]
+    att = torch.exp(2.0 * pack[PK_HDT_DN][..., None] * ops.colc[RC_EMU_DN])
+    src = pack[PK_CDN][..., None] * jnd
+    hup = pack[PK_HDT_UP][..., None]
+    sdn = torch.empty_like(jnd)
+    r = torch.zeros_like(jnd[0])
+    for t in range(jnd.shape[0]):
+        r = att[t] * r + src[t]
+        sdn[t] = r - hup[t] * jnd[t]
+    return sdn, jnu
+
+
+def passB_plain(pack, sdn, jnup, cpar, ops: StreamOps):
+    """Surface BC, band fix, upward recurrence, join corrections and
+    smoothing → (fdn, fup)."""
+    L, C, Mp = sdn.shape
+    mr = ops.nb_angles
+    rowf = torch.arange(Mp, device=sdn.device)
+    row0 = rowf < 0.5
+    corr = (rowf >= 0.5).to(sdn.dtype)
+    lastrow = rowf > mr - 1.5
+    colc = ops.colc
+    fv = band_fix_tile(-sdn * colc[RC_IVDN], pack[PK_CHOICE], lastrow,
+                       taps=ops.taps, pvt=ops.pvt, mm=ops.mm, nb_angles=mr)
+    # surface BC from the deepest layer's band-fixed I↓, summed over the
+    # angles in the order the kernel sums them
+    parts = split_parts(fv[L - 1], ops.mm)
+    bc = torch.zeros_like(fv[L - 1])
+    for k in range(Mp):
+        bc = add_terms(bc, ops.bct[0][k], ops.bct[1][k],
+                       [p[:, k:k + 1] for p in parts], ops.mm)
+    r = torch.where(row0, jnup[L - 1], cpar[CP_GRD][:, None] * bc)
+    aup = torch.exp(2.0 * pack[PK_HDT_UP][..., None] * colc[RC_EMU_UP])
+    attu = torch.where(row0, 0.0, aup)
+    jiv = colc[RC_IVUP] * jnup
+    src = torch.where(row0, jnup, pack[PK_CUP][..., None] * jiv)
+    gsv = pack[PK_GS][..., None] * jiv
+    r1row = pack[PK_R1][..., None] > 0.5
+    r2row = pack[PK_R2][..., None] > 0.5
+    q1 = q2 = torch.zeros_like(r)
+    fup = torch.empty_like(sdn)
+    for t in range(L - 1, -1, -1):
+        r = attu[t] * r + src[t]
+        f = r - gsv[t]
+        q1 = q1 * attu[t]
+        q2 = q2 * attu[t]
+        f = f + corr * (q1 + q2)
+        sm = _smooth_up(f, mr, colc[RC_MUUP])
+        d = sm - f
+        q1 = torch.where(r1row[t], d, q1)
+        q2 = torch.where(r2row[t], d, q2)
+        fup[t] = sm
+    return fv, fup
+
+
+# --------------------------------------------------------------------------
+# Wrappers: the CUDA kernel on a card, the plain version on the CPU
+# --------------------------------------------------------------------------
+
+def _kernel_codes(ops: StreamOps, *tensors):
+    """Check what the kernels take; return (dtype code, mode code, stream)."""
+    dtype, dev = ops.dtype, ops.colc.device
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"kernel operand must be a contiguous {dtype} tensor on {dev}; "
+                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+    if dtype not in _DTYPE_CODE or (dtype == torch.float64 and ops.mm != "highest"):
+        raise ValueError(f"the kernels take float32 (any mm) or float64 "
+                         f"(mm='highest'); got {dtype}, mm={ops.mm!r}")
+    return (_DTYPE_CODE[dtype], _MM_CODE[ops.mm],
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def passI(pack, tiles, cpar, ops: StreamOps):
+    """First order I₁ → (fdn, fup) (L, C, Mp).  Replaces
+    sos_rt_tpu/ops/megastream.py::_passI_kernel.  Bound by the operations
+    of the (4Mp, Mp) surface product; the kernel is a tiled FMA product
+    whose epilogue evaluates the closed form (csrc/megastream.cu)."""
+    if not pack.is_cuda:
+        return passI_plain(pack, tiles, cpar, ops)
+    dt, mm, stream = _kernel_codes(ops, pack, tiles, cpar)
+    _, L, C = pack.shape
+    fdn = torch.empty((L, C, ops.mp), dtype=ops.dtype, device=pack.device)
+    fup = torch.empty_like(fdn)
+    lib = cuda_build.library("megastream")
+    cuda_build.check(lib.sos_passI(
+        dt, mm, int(ops.lamb), _ptr(pack), _ptr(tiles), _ptr(cpar),
+        _ptr(ops.colc), _ptr(ops.astk[0]), _ptr(ops.astk[1]),
+        _ptr(fdn), _ptr(fup), L, C, ops.mp, ops.nb_angles, stream), "sos_passI")
+    passI.launches += 1
+    return fdn, fup
+
+
+def passA(pack, fdn, fup, ops: StreamOps):
+    """Jₙ source product + downward recurrence → (sdn, jnup).  Replaces
+    sos_rt_tpu/ops/megastream.py::_passA_kernel.  Bound by the operations
+    of the (4Mp, 2Mp) source product; a tiled FMA product mixes the species
+    in its epilogue, then one thread per (column, angle) walks the layers."""
+    if not fdn.is_cuda:
+        return passA_plain(pack, fdn, fup, ops)
+    dt, mm, stream = _kernel_codes(ops, pack, fdn, fup)
+    L, C, Mp = fdn.shape
+    sdn = torch.empty_like(fdn)
+    jnup = torch.empty_like(fdn)
+    lib = cuda_build.library("megastream")
+    cuda_build.check(lib.sos_passA(
+        dt, mm, _ptr(pack), _ptr(fdn), _ptr(fup), _ptr(ops.colc),
+        _ptr(ops.ws[0]), _ptr(ops.ws[1]), _ptr(sdn), _ptr(jnup),
+        L, C, Mp, stream), "sos_passA")
+    passA.launches += 1
+    return sdn, jnup
+
+
+def passB(pack, sdn, jnup, cpar, ops: StreamOps):
+    """BC, band fix, upward recurrence, corrections, smoothing → (fdn,
+    fup).  Replaces sos_rt_tpu/ops/megastream.py::_passB_kernel.  Bound by
+    bytes (four field planes); one block per column walks the layers with
+    threads over angles, so every row it reads is contiguous."""
+    if not sdn.is_cuda:
+        return passB_plain(pack, sdn, jnup, cpar, ops)
+    dt, mm, stream = _kernel_codes(ops, pack, sdn, jnup, cpar)
+    L, C, Mp = sdn.shape
+    fdn = torch.empty_like(sdn)
+    fup = torch.empty_like(sdn)
+    cols, t_hi, t_lo = ops.taps
+    lib = cuda_build.library("megastream")
+    cuda_build.check(lib.sos_passB(
+        dt, mm, _ptr(pack), _ptr(sdn), _ptr(jnup), _ptr(cpar), _ptr(ops.colc),
+        _ptr(cols), _ptr(t_hi), _ptr(t_lo), _ptr(ops.pvt),
+        _ptr(ops.bct[0]), _ptr(ops.bct[1]), _ptr(fdn), _ptr(fup),
+        L, C, Mp, ops.nb_angles, ops.slot, stream), "sos_passB")
+    passB.launches += 1
+    return fdn, fup
+
+
+passI.launches = passA.launches = passB.launches = 0
+KERNELS = (passI, passA, passB)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The order loop
+# --------------------------------------------------------------------------
+
+def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
+                max_orders: int, full: bool):
+    """The streamed order loop for one block of C columns.
+
+    pack (PK_W, L, C), cpar (CP_W, C), tiles (NI, C, Mp).  The loop runs
+    while any column's ratio is ≥ tol and no column has reached
+    max_orders; each column accumulates only while it is active, so its
+    result does not depend on the other columns of the block.  One host
+    sync per order reads the loop condition.  Returns (toa_dn, toa_up,
+    srf_dn, srf_up (C, Mp), stats (3, C)), or with ``full`` (itot_dn,
+    itot_up (L, C, Mp), stats)."""
+    fdn, fup = passI(pack, tiles, cpar, ops)
+    L, C, Mp = fdn.shape
+    dtype = fdn.dtype
+    real = torch.arange(Mp, device=fdn.device) < ops.nb_angles
+    t_dn, t_up = fdn[0].clone(), fup[0].clone()
+    s_dn, s_up = fdn[L - 1].clone(), fup[L - 1].clone()
+    acc = (fdn.clone(), fup.clone()) if full else None
+    ratio = torch.full((C,), 2.0 * tol, dtype=dtype, device=fdn.device)
+    n = torch.ones((C,), dtype=dtype, device=fdn.device)
+    while bool(((ratio >= tol).any() & (n.max() < max_orders)).item()):
+        active = (ratio >= tol).to(dtype)
+        sdn, jnup = passA(pack, fdn, fup, ops)
+        fdn, fup = passB(pack, sdn, jnup, cpar, ops)
+        del sdn, jnup       # free two planes before the next passA allocates
+        a2 = active[:, None]
+        t_dn = t_dn + a2 * fdn[0]
+        t_up = t_up + a2 * fup[0]
+        s_dn = s_dn + a2 * fdn[L - 1]
+        s_up = s_up + a2 * fup[L - 1]
+        if full:
+            acc[0].add_(a2 * fdn)
+            acc[1].add_(a2 * fup)
+        rnew = ratio_rows_tile(fup[0], t_up, fdn[L - 1], s_dn, real)
+        ratio = torch.where(active > 0.5, rnew, ratio)
+        n = n + active
+    stats = torch.empty((3, C), dtype=dtype, device=fdn.device)
+    stats[ST_N], stats[ST_CONV], stats[ST_RATIO] = n, (ratio < tol).to(dtype), ratio
+    if full:
+        return acc[0], acc[1], stats
+    return t_dn, t_up, s_dn, s_up, stats
+
+
+def block_of(pack, cpar, tiles, i: int, cols_per_block: int):
+    """(pack, cpar, tiles) of column block ``i``, contiguous."""
+    sl = slice(i * cols_per_block, (i + 1) * cols_per_block)
+    return (pack[:, :, sl].contiguous(), cpar[:, sl].contiguous(),
+            tiles[:, sl].contiguous())
+
+
+def stream_order_loop(pack, cpar, tiles, ops: StreamOps, *, tol: float,
+                      max_orders: int, cols_per_block: int,
+                      outputs: str = "summary"):
+    """Run the streamed order loop over the batch, one block of
+    ``cols_per_block`` columns after another.
+
+    pack (PK_W, L, Bp), cpar (CP_W, Bp), tiles (NI, Bp, Mp) with Bp a
+    multiple of the block size.  Returns summary → (toa_dn, toa_up,
+    srf_dn, srf_up (Bp, Mp), stats (3, Bp)); full → (itot_dn, itot_up
+    (Bp, L, Mp), stats)."""
+    C = cols_per_block
+    Bp = cpar.shape[1]
+    if Bp % C:
+        raise ValueError(f"batch {Bp} is not a multiple of the block size {C}")
+    full = outputs == "full"
+    outs = []
+    for i in range(Bp // C):
+        res = solve_block(*block_of(pack, cpar, tiles, i, C), ops, tol=tol,
+                          max_orders=max_orders, full=full)
+        if full:
+            res = (res[0].transpose(0, 1), res[1].transpose(0, 1), res[2])
+        outs.append(res)
+    batch_axis = lambda k: 1 if k == len(outs[0]) - 1 else 0
+    return tuple(torch.cat([o[k] for o in outs], dim=batch_axis(k))
+                 for k in range(len(outs[0])))

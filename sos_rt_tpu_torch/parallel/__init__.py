@@ -1,0 +1,4 @@
+from sos_rt_tpu_torch.parallel.mesh import (  # noqa: F401
+    broadcast_scene,
+    solve_batch,
+)
