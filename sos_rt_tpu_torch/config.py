@@ -33,8 +33,8 @@ MU0_RESONANCE_TOL = 1e-4
 
 class NotPortedError(NotImplementedError):
     """A route of the TPU package that this port does not run yet (the
-    reference and fused engines, the resident mega kernel, meshes, grids
-    or batches the streamed mega path cannot take).  Raised instead of
+    reference and fused engines, the host-side first order, meshes, grids
+    or batches the mega path cannot take).  Raised instead of
     falling back; see ROADMAP.md for the order in which they come."""
 
 

@@ -12,8 +12,9 @@
 // angles last, so row r = t*C + c of the (L*C, Mp) matrix is one
 // (layer, column) pair.  Per-(layer, column) scalars are pack (PK_W, L, C);
 // per-column scalars cpar (CP_W, C); per-angle rows colc (7, Mp); per
-// (column, angle) I1 tiles (NI, C, Mp).  Row-index constants match
-// sos_rt_tpu_torch/ops/megakernel.py and ops/first_order.py.
+// (column, angle) I1 tiles (NI, C, Mp).  The bodies of the three passes
+// are the device functions of sos_tiles.cuh, which the resident whole-loop
+// kernel (megakernel.cu) calls too.
 //
 // Bounds on the H100 and what the design does about them:
 // - passA and passI are products of a fixed (4Mp, K) operator with an
@@ -35,431 +36,39 @@
 //   taps of the selected variant, and the Lambertian BC is a dot over
 //   angles.
 // Every entry point returns cudaGetLastError(); the caller raises on non-0.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "sos_tiles.cuh"
 
 namespace {
 
-enum { PK_TAU = 0, PK_HDT_DN, PK_HDT_UP, PK_COEF_ATM, PK_COEF_AER, PK_CDN,
-       PK_CUP, PK_GS, PK_R1, PK_R2, PK_CHOICE, PK_ABDN, PK_ASDN, PK_ABUP,
-       PK_ASUP, PK_ASTAR, PK_E0T, PK_ES0T, PK_E0RDN, PK_ESRDN, PK_E0RUP,
-       PK_ESRUP, PK_REGION };
-enum { CP_GRD = 0, CP_CONST = 1 };
-enum { RC_EMU_DN = 0, RC_EMU_UP, RC_IVDN, RC_IVUP, RC_MUUP, RC_PKA, RC_PKR };
-enum { T_DDA = 0, T_DDR, T_DBA, T_DBR, T_UDA, T_UDR, T_RESDN, T_ROWA, T_ROWB,
-       T_BC, T_ROWC, T_ROWBU, T_SCKDNA, T_SCKDNB, T_SCKDNC, T_SCKUPA,
-       T_SCKUPB, T_SCKUPC, T_DMA, T_DMR, T_UMA, T_UMR, T_UBA, T_UBR,
-       T_RESUP };
-enum { MM_HIGHEST = 0, MM_BF16X3 = 1, MM_BF16X5 = 2 };
-constexpr int N_TAPS = 6;
-constexpr int BIG_ROW = 1 << 30;
+using namespace sos;
 
-__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
-__device__ __forceinline__ float exp_t(float x) { return expf(x); }
-__device__ __forceinline__ double exp_t(double x) { return exp(x); }
-__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
-__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
-template <typename T> __device__ __forceinline__ T clexp(T x) { return exp_t(x < T(0) ? x : T(0)); }
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <int MODE> struct Parts {
-  static constexpr int NX = MODE == MM_HIGHEST ? 1 : (MODE == MM_BF16X3 ? 2 : 3);
-  static constexpr int NW = MODE == MM_HIGHEST ? 1 : 2;
-};
-
-// x split into its bf16 parts (round half to even, as astype(bfloat16)).
-template <typename T, int MODE>
-__device__ __forceinline__ void split_x(T x, T* p) {
-  if constexpr (MODE == MM_HIGHEST) {
-    p[0] = x;
-  } else {
-    float x1 = bf16r(x);
-    float r1 = x - x1;
-    float x2 = bf16r(r1);
-    p[0] = x1;
-    p[1] = x2;
-    if constexpr (MODE == MM_BF16X5) p[2] = bf16r(r1 - x2);
-  }
-}
-
-// acc + (hi, lo) . x in mode MODE; split products are exact in float32.
-template <typename T, int MODE>
-__device__ __forceinline__ T dot_term(T acc, T hi, T lo, const T* x) {
-  if constexpr (MODE == MM_HIGHEST) {
-    return fma_t(hi, x[0], acc);
-  } else if constexpr (MODE == MM_BF16X3) {
-    acc = fma_t(hi, x[0], acc);
-    acc = fma_t(hi, x[1], acc);
-    return fma_t(lo, x[0], acc);
-  } else {
-    acc = fma_t(hi, x[0], acc);
-    acc = fma_t(hi, x[1], acc);
-    acc = fma_t(hi, x[2], acc);
-    acc = fma_t(lo, x[0], acc);
-    return fma_t(lo, x[1], acc);
-  }
-}
-
-// acc + (hi, lo) . x as separately rounded products and sums, in the order
-// of megakernel.add_terms (passB's short sums; with -fmad=false they match
-// the plain PyTorch version bit for bit).
-template <typename T, int MODE>
-__device__ __forceinline__ T add_terms(T acc, T hi, T lo, const T* x) {
-  constexpr int NX = Parts<MODE>::NX;
-#pragma unroll
-  for (int h = 0; h < NX; ++h) acc = acc + hi * x[h];
-#pragma unroll
-  for (int h = 0; h + 1 < NX; ++h) acc = acc + lo * x[h];
-  return acc;
-}
-
-// The value an identity operator row gives in mode MODE (1·x1 + 1·x2 ...).
-template <typename T, int MODE>
-__device__ __forceinline__ T split_sum(T x) {
-  T p[3];
-  split_x<T, MODE>(x, p);
-  if constexpr (MODE == MM_HIGHEST) return p[0];
-  else if constexpr (MODE == MM_BF16X3) return p[0] + p[1];
-  else return p[0] + p[1] + p[2];
-}
-
-// ---------------------------------------------------------------------------
-// quad_gemm: out_q[r, n] = sum_j W[q*Mp + n, j] * X[r, j], q = 0..3,
-// r < R, n < Mp, j < K; X is produced by a loader, the four sums go to an
-// epilogue.  BM x BN output tile per block of 16 x 16 threads, each thread
-// 4 rows x 2 angles x 4 quads.
-// ---------------------------------------------------------------------------
-constexpr int BM = 64, BN = 32, BK = 16, TX = 16, TY = 16;
-
+// one BM x BN tile of the quad product per block of 16 x 16 threads
 template <typename T, int MODE, class Loader, class Epi>
 __global__ void __launch_bounds__(TX * TY)
 quad_gemm(Loader ld, Epi epi, const T* __restrict__ w_hi,
           const T* __restrict__ w_lo, int R, int Mp, int K) {
-  constexpr int NX = Parts<MODE>::NX, NW = Parts<MODE>::NW;
-  __shared__ T xs[NX][BK][BM + 1];
-  __shared__ T ws[NW][4][BK][BN + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const int r0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  T acc[4][4][2];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[q][i][0] = acc[q][i][1] = T(0);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int s = 0; s < (BM * BK) / (TX * TY); ++s) {
-      const int e = tid + s * TX * TY, row = e / BK, kk = e % BK;
-      const int r = r0 + row, j = k0 + kk;
-      T p[3];
-      split_x<T, MODE>((r < R && j < K) ? ld(r, j) : T(0), p);
-#pragma unroll
-      for (int h = 0; h < NX; ++h) xs[h][kk][row] = p[h];
-    }
-#pragma unroll
-    for (int s = 0; s < (4 * BN * BK) / (TX * TY); ++s) {
-      const int e = tid + s * TX * TY, q = e / (BN * BK), rem = e % (BN * BK);
-      const int nn = rem / BK, kk = rem % BK, n = n0 + nn, j = k0 + kk;
-      const bool ok = n < Mp && j < K;
-      const size_t o = (size_t)(q * Mp + n) * K + j;
-      ws[0][q][kk][nn] = ok ? w_hi[o] : T(0);
-      if constexpr (NW > 1) ws[NW - 1][q][kk][nn] = ok ? w_lo[o] : T(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      T xa[4][NX];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int h = 0; h < NX; ++h) xa[i][h] = xs[h][kk][ty + TY * i];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int jn = 0; jn < 2; ++jn) {
-          const T hi = ws[0][q][kk][tx + TX * jn];
-          const T lo = NW > 1 ? ws[NW - 1][q][kk][tx + TX * jn] : T(0);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            acc[q][i][jn] = dot_term<T, MODE>(acc[q][i][jn], hi, lo, xa[i]);
-        }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jn = 0; jn < 2; ++jn) {
-      const int r = r0 + ty + TY * i, n = n0 + tx + TX * jn;
-      if (r < R && n < Mp)
-        epi(r, n, acc[0][i][jn], acc[1][i][jn], acc[2][i][jn], acc[3][i][jn]);
-    }
+  __shared__ GemmSmem<T, MODE> sm;
+  quad_gemm_tile<T, MODE>(ld, epi, w_hi, w_lo, R, Mp, K, blockIdx.y * BM,
+                          blockIdx.x * BN, threadIdx.y * TX + threadIdx.x, true, sm);
 }
 
-// ---- passA: X = [fdn | fup] (K = 2Mp); epilogue mixes the species ----
-template <typename T> struct LoadFields {
-  const T* fdn; const T* fup; int Mp;
-  __device__ T operator()(int r, int j) const {
-    return j < Mp ? fdn[(size_t)r * Mp + j] : fup[(size_t)r * Mp + (j - Mp)];
-  }
-};
-
-template <typename T> struct EpiSource {
-  const T* pack; T* jnd; T* jnu; int LC; int Mp;
-  __device__ void operator()(int r, int n, T a0, T a1, T a2, T a3) const {
-    const T ca = pack[(size_t)PK_COEF_ATM * LC + r];
-    const T cr = pack[(size_t)PK_COEF_AER * LC + r];
-    const size_t o = (size_t)r * Mp + n;
-    jnd[o] = ca * a0 + cr * a2;
-    jnu[o] = ca * a1 + cr * a3;
-  }
-};
-
-// downward recurrence r_t = e^{2 hdt_dn_t / mu} r_{t-1} + cdn_t jn_t, one
-// thread per (column, angle); sdn = r - hdt_up jn overwrites jn in place.
+// one thread per (column, angle) walks the layers downward
 template <typename T>
 __global__ void down_scan(const T* __restrict__ pack, const T* __restrict__ colc,
                           T* sdn, int L, int C, int Mp) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= C * Mp) return;
-  const int c = idx / Mp, n = idx % Mp;
-  const int LC = L * C;
-  const T emu = colc[RC_EMU_DN * Mp + n];
-  const T* hdn = pack + (size_t)PK_HDT_DN * LC;
-  const T* hup = pack + (size_t)PK_HDT_UP * LC;
-  const T* cdn = pack + (size_t)PK_CDN * LC;
-  T r = T(0);
-  for (int t = 0; t < L; ++t) {
-    const int rr = t * C + c;
-    const size_t o = (size_t)rr * Mp + n;
-    const T att = exp_t(T(2) * hdn[rr] * emu);
-    const T jn = sdn[o];
-    r = att * r + cdn[rr] * jn;
-    sdn[o] = r - hup[rr] * jn;
-  }
+  down_scan_one<T>(pack, PackMap{L, C, C, 0}, colc, sdn, Mp, idx / Mp, idx % Mp);
 }
 
-// ---- passI: X = e^{(tau - tau*) / mu'} (K = Mp, row 0 zero); epilogue is
-// the closed-form I1 (megakernel.make_i1_block) ----
-template <typename T> struct LoadSurfaceExp {
-  const T* astar; const T* ivup;
-  __device__ T operator()(int r, int j) const {
-    return j == 0 ? T(0) : exp_t(astar[r] * ivup[j]);
-  }
-};
-
-template <typename T> struct EpiFirstOrder {
-  const T* pack; const T* tiles; const T* colc; const T* cpar;
-  T* fdn; T* fup; int LC; int C; int Mp; int mr; bool lamb;
-  __device__ void operator()(int r, int n, T e0, T e1, T e2, T e3) const {
-    const int c = r % C;
-    auto s = [&](int row) { return pack[(size_t)row * LC + r]; };
-    auto til = [&](int i) { return tiles[((size_t)i * C + c) * Mp + n]; };
-    const T ca = T(4) * s(PK_COEF_ATM);
-    const T cr = T(4) * s(PK_COEF_AER);
-    const T reg = s(PK_REGION);
-    const bool in_a = reg < T(0.5), in_b = reg < T(1.5);
-    auto sel = [&](T va, T vb, T vc) { return in_a ? va : (in_b ? vb : vc); };
-    const T e0t = s(PK_E0T), es0t = s(PK_ES0T);
-    const T constc = cpar[CP_CONST * C + c];
-    const T emu_dn = colc[RC_EMU_DN * Mp + n];
-    const T ivup = colc[RC_IVUP * Mp + n];
-    const bool lastrow = n >= mr - 1, row0 = n == 0;
-    // down half (row mr-1 = mu=0-: attenuations masked off)
-    const T attb = lastrow ? T(0) : clexp(s(PK_ABDN) * emu_dn);
-    const T atts = lastrow ? T(0) : clexp(s(PK_ASDN) * emu_dn);
-    T dirn = (ca * til(T_DDA) + cr * til(T_DDR)) * (e0t - s(PK_E0RDN) * attb);
-    const T dres = (ca * til(T_DBA) + cr * til(T_DBR)) * e0t * s(PK_ABDN);
-    if (til(T_RESDN) > T(0.5)) dirn = dres;
-    T surf;
-    if (lamb) {
-      const T rowsel = ca * e0 + cr * e1;
-      const T sck = sel(til(T_SCKDNA), til(T_SCKDNB), til(T_SCKDNC));
-      surf = constc * (rowsel - atts * sck);
-    } else {
-      surf = (ca * til(T_DMA) + cr * til(T_DMR)) * (es0t - s(PK_ESRDN) * atts);
-    }
-    T before = sel(T(0), til(T_ROWA), til(T_ROWB));
-    const size_t o = (size_t)r * Mp + n;
-    fdn[o] = dirn + surf + before * attb;
-    // up half (row 0 = mu=0+: attenuations masked off)
-    const T attbu = row0 ? T(0) : clexp(s(PK_ABUP) * ivup);
-    const T attsu = row0 ? T(0) : clexp(s(PK_ASUP) * ivup);
-    const T diru = (ca * til(T_UDA) + cr * til(T_UDR)) * (e0t - s(PK_E0RUP) * attbu);
-    if (lamb) {
-      const T rowsel = ca * e2 + cr * e3;
-      const T sck = sel(til(T_SCKUPA), til(T_SCKUPB), til(T_SCKUPC));
-      const T et = row0 ? T(0) : exp_t(s(PK_ASTAR) * ivup);
-      const T pk = ca * colc[RC_PKA * Mp + n] + cr * colc[RC_PKR * Mp + n];
-      const T lim = ivup * et * (-s(PK_ASUP)) * pk * constc;
-      surf = constc * (rowsel - attsu * sck) + lim;
-    } else {
-      surf = (ca * til(T_UMA) + cr * til(T_UMR)) * (es0t - s(PK_ESRUP) * attsu);
-      const T sres = (ca * til(T_UBA) + cr * til(T_UBR)) * es0t * (-s(PK_ASUP));
-      if (til(T_RESUP) > T(0.5)) surf = sres;
-    }
-    before = sel(til(T_ROWBU), til(T_ROWC), til(T_BC));
-    fup[o] = diru + surf + before * attbu;
-  }
-};
-
-// ---------------------------------------------------------------------------
-// passB: one block per column, thread n = angle; walks layers L-1 .. 0.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ int block_min(int v, int* sred) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int m = BIG_ROW;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = min(m, sred[w]);
-  __syncthreads();
-  return m;
-}
-
+// one block of round32(Mp) threads per column walks the layers upward
 template <typename T, int MODE>
-__global__ void pass_b(const T* __restrict__ pack, const T* __restrict__ sdn,
-                       const T* __restrict__ jnup, const T* __restrict__ cpar,
-                       const T* __restrict__ colc, const int* __restrict__ tap_col,
-                       const T* __restrict__ tap_hi, const T* __restrict__ tap_lo,
-                       const T* __restrict__ pvt, const T* __restrict__ bct_hi,
-                       const T* __restrict__ bct_lo, T* fdn, T* fup,
-                       int L, int C, int Mp, int mr, int slot) {
-  constexpr int NX = Parts<MODE>::NX;
+__global__ void pass_b(PassBArgs<T> a) {
   extern __shared__ unsigned char smem_raw[];
-  T* sv = reinterpret_cast<T*>(smem_raw);     // Mp values of the current row
-  T* sx = sv + Mp;                            // NX * Mp bf16 parts of sv
-  T* spoly = sx + NX * Mp;                    // slot band values
   __shared__ int sred[32];
-
-  const int c = blockIdx.x, n = threadIdx.x;
-  const bool act = n < Mp;
-  const int LC = L * C;
-  const T ivdn = act ? colc[RC_IVDN * Mp + n] : T(0);
-  const T ivup = act ? colc[RC_IVUP * Mp + n] : T(0);
-  const T emu_up = act ? colc[RC_EMU_UP * Mp + n] : T(0);
-  const T muup = act ? colc[RC_MUUP * Mp + n] : T(0);
-  auto pk = [&](int row, int rr) { return pack[(size_t)row * LC + rr]; };
-
-  // put this thread's value (0 for idle threads) and its parts in smem
-  auto stage = [&](T v) {
-    if (act) {
-      sv[n] = v;
-      T p[3];
-      split_x<T, MODE>(v, p);
-#pragma unroll
-      for (int h = 0; h < NX; ++h) sx[h * Mp + n] = p[h];
-    }
-    __syncthreads();
-  };
-
-  // I_down = -sdn / mu with the mu->0- polyfit band fix (band_fix_tile)
-  auto band_fixed = [&](int t) {
-    const int rr = t * C + c;
-    T fv = act ? -sdn[(size_t)rr * Mp + n] * ivdn : T(0);
-    if (n >= mr - 1) fv = T(0);                // mu=0- row and pad rows
-    stage(fv);
-    const int choice = (int)pk(PK_CHOICE, rr);
-    if (n < slot) {
-      const int row = choice * slot + n;
-      T acc = T(0);
-#pragma unroll
-      for (int j = 0; j < N_TAPS; ++j) {
-        const int col = tap_col[row * N_TAPS + j];
-        T x[3];
-#pragma unroll
-        for (int h = 0; h < NX; ++h) x[h] = sx[h * Mp + col];
-        acc = add_terms<T, MODE>(acc, tap_hi[row * N_TAPS + j],
-                                 tap_lo[row * N_TAPS + j], x);
-      }
-      spoly[n] = acc;
-    }
-    __syncthreads();
-    const int i = mr - 1 - n;
-    if (act && i >= 0 && i < slot && pvt[choice * Mp + n] > T(0.5))
-      fv = split_sum<T, MODE>(spoly[i]);
-    __syncthreads();
-    return fv;
-  };
-
-  // surface BC from the deepest layer's band-fixed I_down
-  const T fvs = band_fixed(L - 1);
-  stage(fvs);
-  T rcar = T(0);
-  if (act) {
-    if (n == 0) {
-      rcar = jnup[(size_t)((L - 1) * C + c) * Mp];
-    } else {
-      T acc = T(0);
-      for (int k = 0; k < Mp; ++k) {
-        T x[3];
-#pragma unroll
-        for (int h = 0; h < NX; ++h) x[h] = sx[h * Mp + k];
-        acc = add_terms<T, MODE>(acc, bct_hi[(size_t)k * Mp + n],
-                                 Parts<MODE>::NW > 1 ? bct_lo[(size_t)k * Mp + n] : T(0), x);
-      }
-      rcar = cpar[CP_GRD * C + c] * acc;
-    }
-  }
-  __syncthreads();
-
-  T q1 = T(0), q2 = T(0);
-  const T corr = n >= 1 ? T(1) : T(0);
-  for (int t = L - 1; t >= 0; --t) {
-    const int rr = t * C + c;
-    const size_t o = (size_t)rr * Mp + n;
-    const T fv = t == L - 1 ? fvs : band_fixed(t);
-    // upward recurrence; the mu=0+ row rides along pinned to jn
-    const T attu = n == 0 ? T(0) : exp_t(T(2) * pk(PK_HDT_UP, rr) * emu_up);
-    const T jn = act ? jnup[o] : T(0);
-    const T jiv = ivup * jn;
-    const T src = n == 0 ? jn : pk(PK_CUP, rr) * jiv;
-    const T gsv = pk(PK_GS, rr) * jiv;
-    rcar = attu * rcar + src;
-    T f = rcar - gsv;
-    q1 = q1 * attu;
-    q2 = q2 * attu;
-    f = f + corr * (q1 + q2);
-    // mu->0+ smoothing walk (megakernel._smooth_up)
-    stage(f);
-    int cand = BIG_ROW;
-    if (n >= 1 && n <= mr - 3) {
-      const T d = abs_t(sv[n] - T(2) * sv[n + 1] + sv[n + 2]);
-      if (d <= T(1e-4)) cand = n;
-    }
-    const int idx = min(block_min(cand, sred), mr - 3) + 1;
-    T sm = f;
-    if (n >= 1 && n < idx) {
-      const T w = muup / colc[RC_MUUP * Mp + idx];
-      sm = (T(1) - w) * sv[0] + w * sv[idx];
-    }
-    const T d = sm - f;
-    if (pk(PK_R1, rr) > T(0.5)) q1 = d;
-    if (pk(PK_R2, rr) > T(0.5)) q2 = d;
-    if (act) {
-      fdn[o] = fv;
-      fup[o] = sm;
-    }
-    __syncthreads();
-  }
-}
-
-template <typename F> int dispatch(int dtype, int mode, F&& f) {
-  if (dtype == 0) {
-    if (mode == MM_HIGHEST) return f(float(), std::integral_constant<int, MM_HIGHEST>());
-    if (mode == MM_BF16X3) return f(float(), std::integral_constant<int, MM_BF16X3>());
-    if (mode == MM_BF16X5) return f(float(), std::integral_constant<int, MM_BF16X5>());
-  } else if (dtype == 1 && mode == MM_HIGHEST) {
-    return f(double(), std::integral_constant<int, MM_HIGHEST>());
-  }
-  return (int)cudaErrorInvalidValue;
+  NoSink sink;
+  pass_b_walk<T, MODE>(a, blockIdx.x, threadIdx.x, (int)threadIdx.x < a.Mp,
+                       reinterpret_cast<T*>(smem_raw), sred, 0, blockDim.x >> 5, sink);
 }
 
 dim3 gemm_grid(int R, int Mp) { return dim3((Mp + BN - 1) / BN, (R + BM - 1) / BM); }
@@ -480,7 +89,7 @@ int sos_passA(int dtype, int mode, const void* pack, const void* fdn,
     using T = decltype(tv);
     constexpr int MODE = decltype(mv)::value;
     LoadFields<T> ld{(const T*)fdn, (const T*)fup, Mp};
-    EpiSource<T> epi{(const T*)pack, (T*)sdn, (T*)jnup, R, Mp};
+    EpiSource<T> epi{(const T*)pack, PackMap{L, C, C, 0}, (T*)sdn, (T*)jnup, Mp};
     quad_gemm<T, MODE><<<gemm_grid(R, Mp), dim3(TX, TY), 0, st>>>(
         ld, epi, (const T*)ws_hi, (const T*)ws_lo, R, Mp, 2 * Mp);
     const int n = C * Mp, nt = 256;
@@ -500,11 +109,10 @@ int sos_passI(int dtype, int mode, int lamb, const void* pack,
   return dispatch(dtype, mode, [&](auto tv, auto mv) {
     using T = decltype(tv);
     constexpr int MODE = decltype(mv)::value;
-    LoadSurfaceExp<T> ld{(const T*)pack + (size_t)PK_ASTAR * R,
-                         (const T*)colc + RC_IVUP * Mp};
-    EpiFirstOrder<T> epi{(const T*)pack, (const T*)tiles, (const T*)colc,
-                         (const T*)cpar, (T*)fdn, (T*)fup, R, C, Mp, mr,
-                         lamb != 0};
+    const PackMap pm{L, C, C, 0};
+    LoadSurfaceExp<T> ld{(const T*)pack, pm, (const T*)colc + RC_IVUP * Mp};
+    EpiFirstOrder<T> epi{(const T*)pack, pm, (const T*)tiles, (const T*)colc,
+                         (const T*)cpar, (T*)fdn, (T*)fup, Mp, mr, lamb != 0};
     // a specular surface has no surface-integral product: K = 0
     quad_gemm<T, MODE><<<gemm_grid(R, Mp), dim3(TX, TY), 0, st>>>(
         ld, epi, (const T*)astk_hi, (const T*)astk_lo, R, Mp, lamb ? Mp : 0);
@@ -519,17 +127,18 @@ int sos_passB(int dtype, int mode, const void* pack, const void* sdn,
               void* fdn, void* fup, int L, int C, int Mp, int mr, int slot,
               void* stream) {
   const int nt = ((Mp + 31) / 32) * 32;
-  if (nt > 1024 || slot > nt || mr < 4) return (int)cudaErrorInvalidValue;
+  if (nt > 1024 || slot > Mp || mr < 4) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return dispatch(dtype, mode, [&](auto tv, auto mv) {
     using T = decltype(tv);
     constexpr int MODE = decltype(mv)::value;
-    const size_t smem = sizeof(T) * ((size_t)(1 + Parts<MODE>::NX) * Mp + slot);
-    pass_b<T, MODE><<<C, nt, smem, st>>>(
-        (const T*)pack, (const T*)sdn, (const T*)jnup, (const T*)cpar,
-        (const T*)colc, (const int*)tap_col, (const T*)tap_hi,
-        (const T*)tap_lo, (const T*)pvt, (const T*)bct_hi, (const T*)bct_lo,
-        (T*)fdn, (T*)fup, L, C, Mp, mr, slot);
+    const size_t smem = sizeof(T) * pass_b_smem_elems<T, MODE>(Mp, slot);
+    PassBArgs<T> a{(const T*)pack, PackMap{L, C, C, 0}, (const T*)sdn,
+                   (const T*)jnup, (const T*)cpar, (const T*)colc,
+                   (const int*)tap_col, (const T*)tap_hi, (const T*)tap_lo,
+                   (const T*)pvt, (const T*)bct_hi, (const T*)bct_lo,
+                   (T*)fdn, (T*)fup, Mp, mr, slot};
+    pass_b<T, MODE><<<C, nt, smem, st>>>(a);
     return (int)cudaGetLastError();
   });
 }

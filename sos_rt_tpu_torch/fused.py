@@ -1,15 +1,18 @@
-"""Batched whole-solve entry point: the streamed mega engine.
+"""Batched whole-solve entry point: the mega engine.
 
 Counterpart of the mega part of ``sos_rt_tpu/fused.py``:
-:class:`SweepSummary`, :func:`solve_batch_mega` (the streamed execution,
-``i1='kernel'``) and :func:`predict_order_count`.
+:class:`SweepSummary`, :func:`solve_batch_mega` (``i1='kernel'``; the
+streamed execution and the resident one) and :func:`predict_order_count`.
 
 Host preparation (τ profiles, mixing weights, pack rows, the in-kernel
 I₁ inputs, the static and stacked operators) follows the TPU package
-step for step; the order loop runs in ``ops/megastream.py``.  Routes the
-port does not run yet raise :class:`~sos_rt_tpu_torch.config.NotPortedError`
-instead of falling back: a grid that fails ``mega_supported``,
-``stream=False`` (the resident kernel) and ``i1='host'``.
+step for step.  The order loop then runs either streamed
+(``ops/megastream.py``: two kernel launches per order and block, the loop
+on the host) or resident (``ops/megakernel.py::mega_call``: one launch for
+the whole batch, the loop on the device); :func:`resolve_stream` picks.
+Routes the port does not run yet raise
+:class:`~sos_rt_tpu_torch.config.NotPortedError` instead of falling back:
+a grid that fails ``mega_supported``, and ``i1='host'``.
 """
 from __future__ import annotations
 
@@ -50,6 +53,13 @@ PREDICT_ANGLES = 8            # coarse predictor grid (µ nodes per half)
 PREDICT_LAYERS = 16
 PLANE_BUDGET = 256 * 2 ** 20  # bytes of one half-field plane per block
 MAX_COLS_PER_BLOCK = 1024
+# stream=None runs the resident kernel when one column's four working
+# planes (fdn, fup, sdn, jn_up) take at most this many bytes: the 64×128
+# sweep grid (128 KiB in float32, 256 KiB in float64) does, the 501×800
+# grid (6.4 MB) stays streamed
+RESIDENT_COLUMN_BUDGET = 256 * 2 ** 10
+SCORE_GAP = 1024.0            # predict-sort key = count · gap + min(score, cap)
+SCORE_CAP = SCORE_GAP - 1.0
 
 
 def scene_on(scenes: Scene, device) -> Scene:
@@ -103,16 +113,23 @@ def predict_order_count(scenes: Scene, tables: PhaseTables, grid: GridSpec,
             or (opts.dtype == "float64" and device.type == "cuda")):
         return None
     cg, ct = coarse_problem(tables, grid, device)
-    sol = solve_batch_mega(scenes, ct, cg, opts, outputs="summary",
-                           cols_per_block=predict_cols_per_block(device),
-                           sort=False, device=device)
+    # stream=None: the 8×16 grid takes the resident kernel (one launch
+    # instead of two per order and block; measured 5× faster, PERF.md §6)
+    sol = solve_batch_mega(scenes, ct, cg, opts, outputs="summary", sort=False,
+                           device=device)
     return sol.n_orders
 
 
-def predict_cols_per_block(device) -> int | None:
-    """The predictor's block size: 1024 columns on a card, the default
-    elsewhere."""
-    return MAX_COLS_PER_BLOCK if torch.device(device).type == "cuda" else None
+def resolve_stream(stream: bool | None, grid: GridSpec, dtype: torch.dtype) -> bool:
+    """Whether the order loop runs streamed.  ``None`` resolves to the
+    resident kernel exactly when one column's four working planes fit
+    RESIDENT_COLUMN_BUDGET and the kernel's thread shapes cover the grid;
+    the caller's ``True``/``False`` stands."""
+    if stream is not None:
+        return bool(stream)
+    mp = mk.pad_angles(grid.nb_angles)
+    column = 4 * grid.nb_layers * mp * torch.finfo(dtype).bits // 8
+    return column > RESIDENT_COLUMN_BUDGET or mp > mk.MAX_RESIDENT_MP
 
 
 def coarse_problem(tables: PhaseTables, grid: GridSpec, device):
@@ -133,11 +150,11 @@ def coarse_problem(tables: PhaseTables, grid: GridSpec, device):
 
 
 @dataclasses.dataclass(frozen=True)
-class StreamBatch:
-    """A prepared batch for the streamed order loop (the port's layout):
-    pack (PK_W, L, Bp), cpar (CP_W, Bp), tiles (NI, Bp, Mp), the per-solve
-    operators, and the τ profile; Bp pads the batch to a multiple of the
-    block size by repeating the last column."""
+class MegaBatch:
+    """A prepared batch for the order loop, streamed or resident (the
+    port's layout): pack (PK_W, L, Bp), cpar (CP_W, Bp), tiles (NI, Bp,
+    Mp), the per-solve operators, and the τ profile; Bp pads the batch to
+    a multiple of the block size by repeating the last column."""
 
     pack: Any
     cpar: Any
@@ -154,12 +171,13 @@ class StreamBatch:
         return ms.block_of(self.pack, self.cpar, self.tiles, i, self.cols_per_block)
 
 
-def prepare_stream(scenes: Scene, tables: PhaseTables, grid: GridSpec,
-                   opts: SolverOptions, mm: str | None = None,
-                   cols_per_block: int | None = None, device=None) -> StreamBatch:
-    """Host preparation of the streamed mega solve (fused.py:230-450 of the
-    TPU package): dtype and mm resolution, batch padding, τ profiles,
-    mixing weights, pack rows, the in-kernel I₁ inputs and the operators.
+def prepare_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
+                  opts: SolverOptions, mm: str | None = None,
+                  cols_per_block: int | None = None, device=None) -> MegaBatch:
+    """Host preparation of the mega solve (fused.py:230-450 of the TPU
+    package): dtype and mm resolution, batch padding, τ profiles, mixing
+    weights, pack rows, the in-kernel I₁ inputs and the operators.
+    ``cols_per_block`` defaults to the streamed loop's block size.
     ``scenes``/``tables`` must already be on ``device``."""
     full_precision_matmul()
     stencils = stencils_for(grid)
@@ -253,10 +271,10 @@ def prepare_stream(scenes: Scene, tables: PhaseTables, grid: GridSpec,
         astk = mk._split_op(astack, mm, dtype, device)
     sops = ms.StreamOps.build(grid, stencils, opts.surface, w_mu_np, ws, astk,
                               colc_pk, mm=mm, dtype=dtype, device=device)
-    return StreamBatch(pack=pack, cpar=cpar,
-                       tiles=i1_tiles.transpose(1, 2).contiguous(), ops=sops,
-                       cols_per_block=C, batch=B, tau=tau, idx_up=idx_up,
-                       idx_down=idx_down)
+    return MegaBatch(pack=pack, cpar=cpar,
+                     tiles=i1_tiles.transpose(1, 2).contiguous(), ops=sops,
+                     cols_per_block=C, batch=B, tau=tau, idx_up=idx_up,
+                     idx_down=idx_down)
 
 
 def sort_key(scenes: Scene, tables: PhaseTables, grid: GridSpec,
@@ -264,7 +282,8 @@ def sort_key(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     """The key columns are sorted by before blocking: for
     ``sort='predict'`` the coarse-grid order count first and the
     closed-form score second (the 1024 gap keeps the score term above
-    float32 ulp at count-scale magnitudes); otherwise, or when prediction
+    float32 ulp at count-scale magnitudes, and the score is clamped below
+    the gap so it never outranks a count); otherwise, or when prediction
     does not apply, the score alone."""
     from sos_rt_tpu_torch.parallel.mesh import order_count_score
 
@@ -273,19 +292,28 @@ def sort_key(scenes: Scene, tables: PhaseTables, grid: GridSpec,
         key = predict_order_count(scenes, tables, grid, opts, device=device)
     if key is None:
         return order_count_score(scenes)
-    return key.to(torch.float32) * 1024.0 + order_count_score(scenes)
+    score = torch.clamp(order_count_score(scenes), max=SCORE_CAP)
+    return key.to(torch.float32) * SCORE_GAP + score
 
 
 def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                      opts: SolverOptions, cols_per_block: int | None = None,
                      sort=True, mm: str | None = None, outputs: str = "full",
                      i1: str = "kernel", allow_small: bool = False,
-                     stream: bool = True, device=None):
-    """Whole-solve streamed mega engine over (B,)-batched ``scenes``.
+                     stream: bool | None = None, device=None):
+    """Whole-solve mega engine over (B,)-batched ``scenes``.
 
-    Each block of ``cols_per_block`` columns runs its own order loop;
-    per-column results do not depend on the block size or the order of
-    the columns.  ``sort`` pre-sorts columns by an order-count key so each
+    ``stream`` selects the execution of the same arithmetic: ``True`` the
+    streamed loop (ops/megastream.py: field planes in device memory, two
+    launches per order and block, the loop on the host), ``False`` the
+    resident kernel (ops/megakernel.py::mega_call: one launch, the loop on
+    the device, a thread block per tile of columns), ``None`` (default)
+    the resident kernel where :func:`resolve_stream` finds the grid small
+    enough.  Each block of ``cols_per_block`` columns (streamed; default by
+    :func:`default_cols_per_block`) or tile (resident; default by
+    megakernel.default_cols_per_tile) runs its own order loop; per-column
+    results do not depend on the block size, the order of the columns or
+    the execution.  ``sort`` pre-sorts columns by an order-count key so each
     block's columns converge together (``True``: the closed-form score;
     ``'predict'``: the coarse-grid pre-solve of
     :func:`predict_order_count`, the score when that does not apply);
@@ -299,9 +327,6 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     """
     if outputs not in ("full", "summary"):
         raise ValueError(f"unknown outputs mode {outputs!r}")
-    if not stream:
-        raise NotPortedError("stream=False (the resident whole-loop kernel "
-                             "_mega_kernel) is not ported yet; see ROADMAP.md")
     if i1 != "kernel":
         raise NotPortedError(f"i1={i1!r}: only the in-kernel first order "
                              "(i1='kernel') is ported; see ROADMAP.md")
@@ -321,15 +346,26 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
         sol = solve_batch_mega(take_columns(scenes, perm), tables.take(perm),
                                grid, opts, cols_per_block=cols_per_block,
                                sort=False, mm=mm, outputs=outputs,
-                               allow_small=allow_small, device=device)
+                               allow_small=allow_small, stream=stream,
+                               device=device)
         return take_columns(sol, inv)
 
-    sb = prepare_stream(scenes, tables, grid, opts, mm=mm,
-                        cols_per_block=cols_per_block, device=device)
-    res = ms.stream_order_loop(
-        sb.pack, sb.cpar, sb.tiles, sb.ops, tol=float(opts.tol),
-        max_orders=int(opts.max_orders), cols_per_block=sb.cols_per_block,
-        outputs=outputs)
+    stream = resolve_stream(stream, grid, torch_dtype(opts.dtype))
+    if not stream and cols_per_block is None:
+        cols_per_block = mk.default_cols_per_tile(mk.pad_angles(grid.nb_angles))
+    sb = prepare_batch(scenes, tables, grid, opts, mm=mm,
+                       cols_per_block=cols_per_block, device=device)
+    loop = dict(tol=float(opts.tol), max_orders=int(opts.max_orders))
+    if stream:
+        res = ms.stream_order_loop(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
+                                   cols_per_block=sb.cols_per_block,
+                                   outputs=outputs)
+    else:
+        res = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
+                           full=outputs == "full",
+                           cols_per_tile=sb.cols_per_block)
+        if outputs == "full":       # (L, Bp, Mp) → (Bp, L, Mp)
+            res = (res[0].transpose(0, 1), res[1].transpose(0, 1), res[2])
 
     stats = res[-1]
     B, M = sb.batch, grid.nb_angles

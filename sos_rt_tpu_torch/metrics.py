@@ -38,3 +38,13 @@ def solution_metrics(sol, wall_s: float | None = None,
 def emit(m: Dict[str, Any], file=None, label: str = "metrics") -> None:
     """Print one JSON metrics line (stderr by default)."""
     print(json.dumps({label: m}), file=file or sys.stderr, flush=True)
+
+
+def block_until_ready(sol):
+    """Wait until the device has finished computing a Solution or
+    SweepSummary (for wall-clock measurement); nothing to wait for on the
+    CPU.  Returns ``sol``."""
+    device = torch.as_tensor(sol.n_orders).device
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return sol

@@ -20,17 +20,21 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sos_rt_tpu_torch")
-SOURCES = ("megastream",)
+SOURCES = ("megastream", "megakernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # argument types of every C entry point, by library
 SIGNATURES = {
     "megastream": {
         "sos_passA": [_I, _I] + [_P] * 8 + [_I] * 3 + [_P],
         "sos_passI": [_I, _I, _I] + [_P] * 8 + [_I] * 4 + [_P],
         "sos_passB": [_I, _I] + [_P] * 13 + [_I] * 5 + [_P],
+    },
+    "megakernel": {
+        "sos_mega_blocks": [_I] * 4,
+        "sos_mega": [_I] * 4 + [_P] * 21 + [_I] * 8 + [_D, _P],
     },
 }
 

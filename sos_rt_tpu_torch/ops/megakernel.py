@@ -1,25 +1,28 @@
-"""Host helpers and shared tile math of the whole-solve mega path.
+"""The resident whole-loop kernel, and the host helpers and shared tile
+math of the whole-solve mega path.
 
-Counterpart of the host side of ``sos_rt_tpu/ops/megakernel.py``: the
-row-index constants, ``slot_for``, ``pad_angles``, ``mega_supported``,
-``band_covers_small``, ``build_static_operators`` (and its parts, with
-the stencil as taps: ``stencil_taps``), ``_pad_blocks``,
-``stack_source_operator``, and plain-torch versions of the tile math the
-streamed passes share (``_dot3``, ``_smooth_up``, ``band_fix_tile``,
-``ratio_rows_tile``, ``make_i1_block``).
+Counterpart of ``sos_rt_tpu/ops/megakernel.py``: the row-index constants,
+``slot_for``, ``pad_angles``, ``mega_supported``, ``band_covers_small``,
+``build_static_operators`` (and its parts, with the stencil as taps:
+``stencil_taps``), ``_pad_blocks``, ``stack_source_operator``, plain-torch
+versions of the tile math the passes share (``_dot3``, ``_smooth_up``,
+``band_fix_tile``, ``ratio_rows_tile``, ``make_i1_block``), and
+:func:`mega_call`, the whole order loop of a batch in one kernel launch
+(``csrc/megakernel.cu``) with its plain version :func:`mega_plain`.
 
 The host helpers return the TPU package's operator shapes (angles padded
 to Mp = pad_angles(M), zero rows/columns beyond the real M), so they
 compare array-equal with it.  The tile math works on the port's layout,
 which keeps ANGLES LAST: a tile is (..., Mp) with any leading (layer,
 column) axes, and a product with an (R, Mp) operator contracts the last
-axis.  The resident whole-loop kernel ``_mega_kernel`` is a later slice.
+axis.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from sos_rt_tpu_torch.ops import cuda_build
 from sos_rt_tpu_torch.ops.precision import split_bf16
 from sos_rt_tpu_torch.ops.sweeps import SMOOTH_TOL, SweepStencils
 from sos_rt_tpu_torch.ops import first_order as fo
@@ -399,3 +402,131 @@ def make_i1_block(til, emu_dn, ivup, row0, lastrow, constc, pka, pkr,
         return i1d, i1u
 
     return i1_block
+
+
+# --------------------------------------------------------------------------
+# The resident whole-loop solve: one launch runs every order of a batch
+# --------------------------------------------------------------------------
+
+MAX_COLS_PER_TILE = 32      # most columns one thread block's tile may hold
+MAX_RESIDENT_MP = 512       # the kernel's thread shapes cover Mp <= 512
+
+
+def default_cols_per_tile(mp: int) -> int:
+    """Columns per thread block of the resident kernel: as many as pass B
+    walks at once (one group of round32(Mp) threads per column in a block
+    of 256 threads), one for wider grids."""
+    group = -(-mp // 32) * 32
+    return max(1, min(MAX_COLS_PER_TILE, 256 // group))
+
+
+def mega_plain(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
+               full: bool):
+    """Plain PyTorch version of the whole-loop kernel for one block of C
+    columns that share the loop: pack (PK_W, L, C), cpar (CP_W, C), tiles
+    (NI, C, Mp), ``ops`` a megastream.StreamOps.
+
+    The first order I₁ starts the fields and the totals; the ratio is
+    seeded at 2·tol and n at 1; while any column's ratio is ≥ tol and no
+    column has reached ``max_orders``, one order runs pass A, the surface
+    BC and pass B, adds the new fields to the totals of the columns still
+    active, and renews those columns' ratio and n.  Returns (toa_dn,
+    toa_up, srf_dn, srf_up (C, Mp), stats (3, C)), or with ``full``
+    (itot_dn, itot_up (L, C, Mp), stats)."""
+    from sos_rt_tpu_torch.ops import megastream as ms
+
+    fdn, fup = ms.passI_plain(pack, tiles, cpar, ops)           # pre: I₁
+    L, C, Mp = fdn.shape
+    dtype, dev = fdn.dtype, fdn.device
+    real = torch.arange(Mp, device=dev) < ops.nb_angles
+    if full:
+        itot = [fdn.clone(), fup.clone()]
+        rows = lambda: (itot[0][0], itot[1][0], itot[0][L - 1], itot[1][L - 1])
+    else:
+        itot = [fdn[0].clone(), fup[0].clone(), fdn[L - 1].clone(), fup[L - 1].clone()]
+        rows = lambda: tuple(itot)
+    ratio = torch.full((C,), 2.0 * tol, dtype=dtype, device=dev)
+    n = torch.ones((C,), dtype=dtype, device=dev)
+    while bool((ratio >= tol).any()) and bool(n.max() < max_orders):
+        active = (ratio >= tol).to(dtype)
+        a2 = active[:, None]
+        sdn, jnup = ms.passA_plain(pack, fdn, fup, ops)
+        fdn, fup = ms.passB_plain(pack, sdn, jnup, cpar, ops)   # BC + pass B
+        if full:
+            itot[0] += a2 * fdn
+            itot[1] += a2 * fup
+        else:
+            for k, new in enumerate((fdn[0], fup[0], fdn[L - 1], fup[L - 1])):
+                itot[k] = itot[k] + a2 * new
+        _, tot_up, tot_dn, _ = rows()
+        rnew = ratio_rows_tile(fup[0], tot_up, fdn[L - 1], tot_dn, real)
+        ratio = torch.where(active > 0.5, rnew, ratio)
+        n = n + active
+    stats = torch.stack([n, (ratio < tol).to(dtype), ratio])
+    return (*itot, stats)
+
+
+def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
+              full: bool, cols_per_tile: int | None = None):
+    """The whole order loop of a batch in one kernel launch.  Replaces
+    sos_rt_tpu/ops/megakernel.py::_mega_kernel (mega_call).
+
+    pack (PK_W, L, C), cpar (CP_W, C), tiles (NI, C, Mp) hold the whole
+    padded batch; every ``cols_per_tile`` columns run their own loop (a
+    column's result does not depend on its tile).  On CUDA tensors this
+    launches ``sos_mega`` (csrc/megakernel.cu) once, or raises; on CPU
+    tensors it runs :func:`mega_plain` tile by tile.  Bound by the
+    operations of the source product; one thread block per tile keeps the
+    tile's four field planes in an L2-sized workspace and evaluates the
+    loop condition itself, so the host never waits between orders.
+    Returns what :func:`mega_plain` returns, for all C columns."""
+    from sos_rt_tpu_torch.ops import megastream as ms
+
+    _, L, C = pack.shape
+    Mp = ops.mp
+    cb = cols_per_tile or default_cols_per_tile(Mp)
+    cb = min(cb, C)
+    if C % cb:
+        raise ValueError(f"batch {C} is not a multiple of the tile size {cb}")
+    if not pack.is_cuda:
+        outs = [mega_plain(*ms.block_of(pack, cpar, tiles, i, cb), ops, tol=tol,
+                           max_orders=max_orders, full=full)
+                for i in range(C // cb)]
+        # columns are axis 1 of the full planes and of stats, axis 0 of rows
+        axis = lambda k: 1 if full or k == len(outs[0]) - 1 else 0
+        return tuple(torch.cat([o[k] for o in outs], dim=axis(k))
+                     for k in range(len(outs[0])))
+
+    dt, mm, stream = ms._kernel_codes(ops, pack, cpar, tiles)
+    if Mp > MAX_RESIDENT_MP or cb > MAX_COLS_PER_TILE:
+        raise ValueError(f"the resident kernel takes Mp <= {MAX_RESIDENT_MP} and "
+                         f"tiles of <= {MAX_COLS_PER_TILE} columns; got Mp={Mp}, "
+                         f"cols_per_tile={cb}")
+    lib = cuda_build.library("megakernel")
+    dev, dtype = pack.device, ops.dtype
+    # the occupancy query and the launch act on the current device
+    with torch.cuda.device(dev):
+        blocks = lib.sos_mega_blocks(dt, mm, Mp, ops.slot)
+        if blocks <= 0:
+            cuda_build.check(-blocks or 1, "sos_mega_blocks")
+        nblocks = min(C // cb, blocks)
+        work = torch.empty((nblocks, 4, L, cb, Mp), dtype=dtype, device=dev)
+        counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+        shape = (L, C, Mp) if full else (C, Mp)
+        outs = [torch.empty(shape, dtype=dtype, device=dev) for _ in range(2 if full else 4)]
+        stats = torch.empty((3, C), dtype=dtype, device=dev)
+        o = [t.data_ptr() for t in outs] + [0, 0]
+        cols, t_hi, t_lo = ops.taps
+        p = lambda t: t.data_ptr()
+        cuda_build.check(lib.sos_mega(
+            dt, mm, int(ops.lamb), int(full), p(pack), p(cpar), p(tiles), p(ops.colc),
+            p(ops.ws[0]), p(ops.ws[1]), p(ops.astk[0]), p(ops.astk[1]),
+            p(cols), p(t_hi), p(t_lo), p(ops.pvt), p(ops.bct[0]), p(ops.bct[1]),
+            p(work), p(counter), o[0], o[1], o[2], o[3], p(stats),
+            L, C, cb, Mp, ops.nb_angles, ops.slot, nblocks, int(max_orders),
+            float(tol), stream), "sos_mega")
+    mega_call.launches += 1
+    return (*outs, stats)
+
+
+mega_call.launches = 0

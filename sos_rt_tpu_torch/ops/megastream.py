@@ -19,7 +19,10 @@ Each pass is a wrapper: on a CUDA tensor it launches the hand-written
 kernel of ``csrc/megastream.cu`` (or raises) and adds one to its
 ``launches`` count; on a CPU tensor it runs the plain PyTorch version
 beside it (``passI_plain``, ``passA_plain``, ``passB_plain``), which is
-also what the kernels are held against on the card.
+also what the kernels are held against on the card.  The same three
+bodies, as device functions, make up the resident whole-loop kernel
+(``ops/megakernel.py::mega_call``), which runs the order loop on the
+device instead of in :func:`solve_block`.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from sos_rt_tpu_torch.ops.megakernel import (
     PK_CUP, PK_GS, PK_HDT_DN, PK_HDT_UP, PK_R1, PK_R2, RC_EMU_DN, RC_EMU_UP,
     RC_IVDN, RC_IVUP, RC_MUUP, RC_PKA, RC_PKR, ST_CONV, ST_N, ST_RATIO,
     _dot3, _smooth_up, add_terms, angle_rows, band_fix_tile, band_validity,
-    bc_matrix, make_i1_block, ratio_rows_tile, split_parts, stencil_taps)
+    bc_matrix, make_i1_block, mega_call, ratio_rows_tile, split_parts,
+    stencil_taps)
 from sos_rt_tpu_torch.ops.precision import split_bf16
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -267,11 +271,12 @@ def passB(pack, sdn, jnup, cpar, ops: StreamOps):
 
 
 passI.launches = passA.launches = passB.launches = 0
-KERNELS = (passI, passA, passB)
+KERNELS = (passI, passA, passB)              # the streamed loop's kernels
+ALL_KERNELS = KERNELS + (mega_call,)         # every kernel wrapper of the port
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in ALL_KERNELS:
         k.launches = 0
 
 

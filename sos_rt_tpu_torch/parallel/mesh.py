@@ -64,10 +64,11 @@ def mega_small_ok(scenes: Scene, grid: GridSpec) -> bool:
 
 def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                 opts: SolverOptions, mesh=None, buckets: int = 1,
-                engine: str = "mega", outputs: str = "full",
+                engine: str = "mega", block_b: int = 16, outputs: str = "full",
                 cols_per_block: int | None = None, sort: str = "score",
                 device=None):
-    """Solve a batch of columns with the streamed mega engine on one GPU.
+    """Solve a batch of columns with the mega engine on one GPU (resident
+    or streamed, as fused.resolve_stream picks for the grid).
 
     scenes: Scene with (B,) fields (see :func:`broadcast_scene`).
     ``buckets > 1`` sorts the columns by the order-count key and solves
@@ -75,7 +76,8 @@ def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     unchanged.  ``outputs='summary'`` returns a
     :class:`sos_rt_tpu_torch.fused.SweepSummary`.  ``sort='predict'`` keys
     the sort on the coarse-grid order-count pre-solve
-    (fused.predict_order_count).  ``device`` defaults to CUDA.
+    (fused.predict_order_count).  ``block_b`` is the fused engine's block
+    size, unused until that engine is ported.  ``device`` defaults to CUDA.
     """
     from sos_rt_tpu_torch.fused import (scene_on, solve_batch_mega, sort_key,
                                         tables_on, take_columns)

@@ -11,7 +11,15 @@ only the port installed does not have.)
 Tolerances, relative to each output's largest magnitude: 1e-12 in
 float64 ('highest'); 1e-5 in float32, where the kernel and cuBLAS sum the
 split products of passA/passI in another order (passB's sums are done in
-the same order by both and agree to the bit).
+the same order by both and agree to the bit).  The resident whole-loop
+kernel (mega_call) is held against mega_plain with equal order counts and,
+on the TOA/surface rows, 1e-4 of scale in float32, the bound stated for
+the passes it is made of.  Inside the float32 field a last-bit difference
+between the kernel's and cuBLAS's sums can move the endpoint of the µ→0⁺
+smoothing blend (its 1e-4 threshold is discontinuous) and change a few
+angles of a layer by 1e-3..1e-2 of scale, so there at most one value in a
+thousand may differ by more than 1e-4.  Against the streamed kernels,
+whose device functions it shares, the resident kernel agrees to the bit.
 """
 import dataclasses
 
@@ -20,7 +28,8 @@ import pytest
 import torch
 
 from sos_rt_tpu_torch.config import GridSpec, Scene, SolverOptions
-from sos_rt_tpu_torch.fused import prepare_stream
+from sos_rt_tpu_torch.fused import prepare_batch, solve_batch_mega
+from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.ops import megastream as ms
 from sos_rt_tpu_torch.parallel import broadcast_scene, solve_batch
 from sos_rt_tpu_torch.solver import PhaseTables
@@ -36,13 +45,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, batch=8):
+def _inputs(device, dtype, batch=8, grid=GRID):
     rng = np.random.default_rng(7)
     t = lambda lo, hi: torch.as_tensor(rng.uniform(lo, hi, batch), device=device)
     scenes = broadcast_scene(Scene(), batch, device=device)
     scenes = dataclasses.replace(scenes, grd_alb=t(0.0, 0.9),
                                  tau_star_aer=t(0.01, 0.4), alb_aer=t(0.7, 1.0))
-    tables = PhaseTables.from_models(GRID, 0.5, aer=("hg", {"g": 0.7}),
+    tables = PhaseTables.from_models(grid, 0.5, aer=("hg", {"g": 0.7}),
                                      dtype=dtype, device=device, cache=False)
     return scenes, tables
 
@@ -59,7 +68,7 @@ def _rel(a, b):
 def test_kernels_match_plain(cuda, surface, dtype, mm, tol):
     scenes, tables = _inputs(cuda, dtype)
     opts = SolverOptions(surface=surface, dtype=str(dtype).split(".")[1], mm=mm)
-    sb = prepare_stream(scenes, tables, GRID, opts, device=cuda)
+    sb = prepare_batch(scenes, tables, GRID, opts, device=cuda)
     pack, cpar, tiles = sb.block(0)
     ops = sb.ops
     fdn, fup = ms.passI_plain(pack, tiles, cpar, ops)
@@ -91,19 +100,91 @@ def test_slice_on_card_matches_cpu(cuda, surface):
 
 def test_wrappers_count_launches(cuda):
     scenes, tables = _inputs(cuda, torch.float32)
+    opts = SolverOptions(dtype="float32")
     ms.reset_launches()
-    sol = solve_batch(scenes, tables, GRID, SolverOptions(dtype="float32"),
-                      outputs="summary", device=cuda)
+    sol = solve_batch_mega(scenes, tables, GRID, opts, outputs="summary",
+                           stream=True, device=cuda)
     n = int(sol.n_orders.max())
     assert ms.passI.launches == 1
     assert ms.passA.launches == ms.passB.launches == n - 1
+    assert mk.mega_call.launches == 0
+    ms.reset_launches()
+    solve_batch_mega(scenes, tables, GRID, opts, outputs="summary", stream=False,
+                     device=cuda)
+    assert mk.mega_call.launches == 1
+    assert ms.passI.launches == ms.passA.launches == ms.passB.launches == 0
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("full", [False, True], ids=["summary", "full"])
+@pytest.mark.parametrize("dtype,mm,tol", [(torch.float64, "highest", 1e-12),
+                                          (torch.float32, "bf16x3", 1e-4),
+                                          (torch.float32, "bf16x5", 1e-4),
+                                          (torch.float32, "highest", 1e-4)])
+def test_mega_call_matches_plain(cuda, surface, full, dtype, mm, tol):
+    scenes, tables = _inputs(cuda, dtype)
+    opts = SolverOptions(surface=surface, dtype=str(dtype).split(".")[1], mm=mm)
+    sb = prepare_batch(scenes, tables, GRID, opts, device=cuda)
+    kw = dict(tol=opts.tol, max_orders=opts.max_orders, full=full)
+    want = mk.mega_plain(sb.pack, sb.cpar, sb.tiles, sb.ops, **kw)
+    for cb in (None, 1, 8):
+        got = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, cols_per_tile=cb, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[-1][mk.ST_N], want[-1][mk.ST_N]), cb
+        assert torch.equal(got[-1][mk.ST_CONV], want[-1][mk.ST_CONV])
+        for k, p in zip(got[:-1], want[:-1]):
+            if full and dtype == torch.float32:
+                rows = [0, GRID.nb_layers - 1]
+                assert _rel(k[rows], p[rows]) <= tol, cb
+                off = (k - p).abs() > tol * float(p.abs().max())
+                assert float(off.float().mean()) <= 1e-3, cb
+            else:
+                assert _rel(k, p) <= tol, cb
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("outputs", ["summary", "full"])
+def test_resident_equals_streamed_to_the_bit(cuda, dtype, outputs):
+    # 12 columns: a multiple of the resident tile (4) and one streamed block,
+    # so both executions prepare the same unpadded batch (cuBLAS may sum the
+    # host preparation's products in another order for another batch shape)
+    scenes, tables = _inputs(cuda, dtype, batch=12)
+    opts = SolverOptions(dtype=str(dtype).split(".")[1], max_orders=40)
+    a, b = (solve_batch_mega(scenes, tables, GRID, opts, outputs=outputs,
+                             stream=stream, device=cuda) for stream in (True, False))
+    assert torch.equal(a.n_orders, b.n_orders)
+    assert torch.equal(a.converged, b.converged)
+    field = "i_toa" if outputs == "summary" else "i_total"
+    assert torch.equal(getattr(a, field), getattr(b, field))
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("angles,layers", [(75, 40), (100, 24), (260, 16)])
+def test_resident_thread_shapes(cuda, angles, layers, surface):
+    """The block's other thread shapes: Mp = 80 (pass-B groups of 96 threads,
+    64 threads without a group), Mp = 104 (two groups of 128) and Mp = 264
+    (one group in a block of 512), each against the streamed kernels."""
+    grid = GridSpec(angles, layers)
+    scenes, tables = _inputs(cuda, torch.float32, batch=4, grid=grid)
+    opts = SolverOptions(surface=surface, dtype="float32", max_orders=12)
+    a, b = (solve_batch_mega(scenes, tables, grid, opts, outputs="full",
+                             allow_small=True, stream=stream, device=cuda)
+            for stream in (True, False))
+    assert torch.equal(a.n_orders, b.n_orders)
+    assert bool(torch.isfinite(b.i_total).all())
+    assert torch.equal(a.i_total, b.i_total)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     scenes, tables = _inputs(cuda, torch.float64)
-    sb = prepare_stream(scenes, tables, GRID, SolverOptions(), device=cuda)
+    sb = prepare_batch(scenes, tables, GRID, SolverOptions(), device=cuda)
     pack, cpar, tiles = sb.block(0)
     with pytest.raises(ValueError):
         ms.passI(pack.float(), tiles, cpar, sb.ops)
     with pytest.raises(ValueError):
         ms.passI(pack, tiles.transpose(1, 2), cpar, sb.ops)
+    kw = dict(tol=1e-4, max_orders=10, full=False)
+    with pytest.raises(ValueError):
+        mk.mega_call(sb.pack.float(), sb.cpar, sb.tiles, sb.ops, **kw)
+    with pytest.raises(ValueError):
+        mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, cols_per_tile=3, **kw)

@@ -154,7 +154,11 @@ def test_routes_outside_the_slice_raise(tables56):
     for engine in ("reference", "fused"):
         _raises_not_ported(lambda: solve_batch(*port, engine=engine, device="cpu"))
     _raises_not_ported(lambda: solve_batch(*port, mesh=object(), device="cpu"))
-    _raises_not_ported(lambda: solve_batch_mega(*port, stream=False, device="cpu"))
+    # the resident execution is ported: it runs, and equals the streamed one
+    resident = solve_batch_mega(*port, stream=False, device="cpu")
+    streamed = solve_batch_mega(*port, stream=True, device="cpu")
+    assert bool(resident.converged.all())
+    assert torch.equal(resident.n_orders, streamed.n_orders)
     _raises_not_ported(lambda: solve_batch_mega(*port, i1="host", device="cpu"))
     # a small-µ grid without the band-coverage grant (mega_supported false)
     small = JGrid(201, 48)
