@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (sos_rt_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py        # about 2 min on an H100, the build included
+    python3 chip_smoke.py        # about 3 min on an H100, the build included
 
 Phases, one JSON line each on stdout:
 
@@ -14,7 +14,12 @@ Phases, one JSON line each on stdout:
                  summation order differs); the resident whole-loop kernel
                  (mega_call) against mega_plain on the same batch: equal
                  order counts, summary rows within 1e-12 (float64) and 1e-4
-                 (float32 'bf16x3', 'bf16x5') of scale.
+                 (float32 'bf16x3', 'bf16x5') of scale; the fused engine's
+                 two sweep kernels (down_sweep, up_sweep_smooth) against
+                 their plain versions on the J_n of a real second order,
+                 float64 within 1e-12 and float32 within 1e-6 of scale
+                 (0.0 is expected: both do the same separately rounded
+                 operations in the same order).
 3. ``slice_f64`` solve_batch(engine='mega') in float64 on the card against
                  the same solve on the CPU: equal order counts, rtol 1e-9.
 4. ``canonical`` the main path at full width: the ``hg`` preset on the
@@ -54,6 +59,25 @@ Phases, one JSON line each on stdout:
                  converged, 8 columns against the float64 solve on the card;
                  a second call with --resume that solves no shard.
 
+8. ``fused_f64`` solve_batch(engine='fused') in float64 on the card against
+                 the same solve on the CPU, on GridSpec(56, 64) and on the
+                 Gauss grid GridSpec(51, 24) with small-µ columns: equal
+                 order counts, rtol 1e-9.
+9. ``fused_canonical`` the fused engine's path at full width: the ``hg``
+                 preset on the 501×800 grid at τ*_atm = 0.044 (the molecular
+                 optical depth near 670 nm), B=64, float32 bf16x3, entered
+                 as solve_batch(engine='mega', outputs='summary'): no
+                 column's polyfit band covers the grid's small-µ columns
+                 (mega_small_ok is false), so the whole batch takes the
+                 fused engine; the launch counts (each sweep kernel once an
+                 order, no mega kernel); 8 columns against the float64 fused
+                 solve on the card; each sweep kernel at this block against
+                 its plain version, timed beside it and its bound.
+10. ``fused_sweep`` the 4096-column sweep batch of phase ``resident`` through
+                 engine='fused' beside the mega engine on the same batch:
+                 col/s of both, the share of columns whose order counts
+                 differ (limit 0.1%), the sweep kernels at this block.
+
 Then the ``{"kernels": [...]}`` line (max_abs_err over both paths' blocks), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  Without CUDA, or without the
@@ -79,9 +103,23 @@ REPLACES = {
     "passA": "sos_rt_tpu/ops/megastream.py:85",
     "passB": "sos_rt_tpu/ops/megastream.py:128",
     "mega_call": "sos_rt_tpu/ops/megakernel.py:303",
+    "down_sweep": "sos_rt_tpu/ops/pallas_sweeps.py:90",
+    "up_sweep_smooth": "sos_rt_tpu/ops/pallas_sweeps.py:167",
 }
 SOURCE = "sos_rt_tpu_torch/csrc/megastream.cu"
 MEGA_SOURCE = "sos_rt_tpu_torch/csrc/megakernel.cu"
+FUSED_SOURCE = "sos_rt_tpu_torch/csrc/fused_sweeps.cu"
+# a sweep kernel against its plain version, of scale: both do the same
+# separately rounded operations in the same order, so 0.0 is expected; a
+# last-bit difference would show as ~1e-7 (float32) and, where it moves a
+# smoothing blend's endpoint, as ~1e-2
+SWEEP_TOL = {"float64": 1e-12, "float32": 1e-6}
+# columns of the float32 sweep batch whose order count may differ between
+# the fused and the mega engine (a ratio within rounding of the 100 ppm line)
+FUSED_N_DIFFERS_FRAC = 1e-3
+# operations per value of a sweep (multiplies, adds, compares; an
+# exponential counted as one), for the bound's operations side
+SWEEP_OPS = {"down_sweep": 8, "up_sweep_smooth": 30}
 # resident against streamed on the same float32 batch, of scale: the two
 # call the same device functions in the same order (0.0 is expected)
 RESIDENT_TOL = 1e-6
@@ -276,6 +314,80 @@ def kernel_vs_plain(pack, cpar, tiles, ops):
     return rel, absd, (fdn_p, fup_p, sdn_p, jn_p)
 
 
+def second_order_source(fb):
+    """J_n (B, L, 2M) of the fused batch's second order."""
+    m = fb.M
+    return fb.source(fb.i1[:, :, :m], fb.i1[:, :, m:])
+
+
+def sweep_calls(fb, jn):
+    """{name: (kernel call, plain call)} of the two sweep kernels on the
+    source ``jn``, as the engine's order step gives it to them: the halves
+    are views of the (B, L, 2M) source, the BC comes from the fixed I_down."""
+    from sos_rt_tpu_torch.ops import fused_sweeps as fs
+
+    m = fb.M
+    dn_args = (jn[:, :, :m], fb.pack, fb.mu_down_safe)
+    bc = fb.surface_bc(fb.narrow_down_fixes(fs.down_sweep_plain(*dn_args), jn))
+    up_args = (jn[:, :, m:], fb.pack, fb.cparams, fb.mu_up_row, bc)
+    return {"down_sweep": (lambda: fs.down_sweep(*dn_args),
+                           lambda: fs.down_sweep_plain(*dn_args)),
+            "up_sweep_smooth": (lambda: fs.up_sweep_smooth(*up_args),
+                                lambda: fs.up_sweep_smooth_plain(*up_args))}
+
+
+def sweeps_vs_plain(calls, dtype: str, what: str):
+    """Each sweep kernel against its plain version on the same inputs.
+    Returns {name: max relative error}, {name: max absolute error}."""
+    import torch
+
+    rel, absd = {}, {}
+    for name, (kern, plain) in calls.items():
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{name} {what}: non-finite values")
+        rel[name] = rel_err(got, want)
+        absd[name] = float((got - want).abs().max())
+        if not rel[name] <= SWEEP_TOL[dtype]:
+            fail(f"{name} {what}: rel err {rel[name]:.3e} > {SWEEP_TOL[dtype]}")
+    return rel, absd
+
+
+def sweep_bound_ms(name: str, B: int, L: int, M: int, itemsize: int):
+    """Least time (ms) for one sweep call on an H100: one read of its half
+    of J_n, one write of the field, pack (B, L, 8), the µ row and for the
+    up sweep cparams (B, 8) and the BC (B, M), over the memory rate, against
+    its operations over the card's FP32/FP64 rate."""
+    values = 2 * B * L * M + 8 * B * L + M
+    if name == "up_sweep_smooth":
+        values += 8 * B + B * M
+    t_bytes = values * itemsize / HBM_BYTES_PER_S * 1e3
+    op_type = "float64" if itemsize == 8 else "float32"
+    t_ops = SWEEP_OPS[name] * B * L * M / PEAK_OPS[op_type] * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def sweep_block_times(calls, B: int, L: int, M: int, itemsize: int, reps: int = 5):
+    """{name: {ms, plain_ms, bound_ms, bound_by}} at this block."""
+    out = {}
+    for name, (kern, plain) in calls.items():
+        bms, by = sweep_bound_ms(name, B, L, M, itemsize)
+        out[name] = {"ms": timed(kern, reps), "plain_ms": timed(plain, 1),
+                     "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def fused_launches_ok(launches: dict, n_max: int, phase: str):
+    """Fail unless the run went through the fused engine alone: each sweep
+    kernel once per order after the first, no mega kernel."""
+    want = {k: 0 for k in launches}
+    want["down_sweep"] = want["up_sweep_smooth"] = n_max - 1
+    if launches != want:
+        fail(f"{phase}: launches {launches}, expected {want}")
+
+
 def phase_card():
     import torch
 
@@ -298,6 +410,7 @@ def phase_card():
 
 
 def phase_kernels(device):
+    """Returns {sweep kernel: max absolute error against plain, float32}."""
     import numpy as np
     import torch
 
@@ -308,6 +421,7 @@ def phase_kernels(device):
     rng = np.random.default_rng(SEED)
     scenes = random_scenes(get_preset("hg"), 8, device, rng)
     results = []
+    sweep_abs = {}
     for dtype, mm, tol in (("float64", "highest", 1e-12),
                            ("float32", "bf16x3", 1e-5),
                            ("float32", "highest", 1e-5)):
@@ -335,8 +449,24 @@ def phase_kernels(device):
                                       f"{dtype} {mm} {surface}")
             mega.append({"dtype": dtype, "mm": mm, "surface": surface, "tol": tol,
                          "rel_err": rel})
+    from sos_rt_tpu_torch.fused import FusedBatch
+
+    sweeps = []
+    for dtype in ("float64", "float32"):
+        for surface in ("lambertian", "specular"):
+            opts = SolverOptions(surface=surface, dtype=dtype)
+            fb = FusedBatch(scenes, test_tables(grid, device, getattr(torch, dtype)),
+                            grid, opts, device)
+            rel, absd = sweeps_vs_plain(sweep_calls(fb, second_order_source(fb)), dtype,
+                                        f"{dtype} {surface}")
+            sweeps.append({"dtype": dtype, "surface": surface, "tol": SWEEP_TOL[dtype],
+                           "rel_err": rel})
+            if dtype == "float32":
+                for k, v in absd.items():
+                    sweep_abs[k] = max(sweep_abs.get(k, 0.0), v)
     emit({"phase": "kernels", "grid": [56, 64], "batch": 8, "cases": results,
-          "mega_call": mega})
+          "mega_call": mega, "sweeps": sweeps})
+    return sweep_abs
 
 
 def phase_slice_f64(device):
@@ -830,6 +960,157 @@ def phase_sweep_cli(device):
     return launches["mega_call"]
 
 
+def phase_fused_f64(device):
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.config import GridSpec, SolverOptions
+    from sos_rt_tpu_torch.parallel import solve_batch
+    from sos_rt_tpu_torch.presets import get_preset
+
+    out = {"phase": "fused_f64", "batch": 8, "cases": []}
+    for grid, surface in ((GridSpec(56, 64), "lambertian"), (GridSpec(56, 64), "specular"),
+                          (GridSpec(51, 24, spacing="gauss"), "lambertian")):
+        opts = SolverOptions(surface=surface, dtype="float64")
+        sols = []
+        for dev in (device, torch.device("cpu")):
+            rng = np.random.default_rng(SEED)
+            scenes = random_scenes(get_preset("hg"), 8, dev, rng)
+            _, sol, launches = timed_solve(lambda: solve_batch(
+                scenes, test_tables(grid, dev, torch.float64), grid, opts,
+                engine="fused", device=dev))
+            sols.append(sol)
+            if dev.type == "cuda":
+                fused_launches_ok(launches, int(sol.n_orders.max()), "fused_f64")
+        gpu, cpu = sols
+        what = f"fused_f64 {grid} {surface}"
+        if not torch.equal(gpu.n_orders.cpu(), cpu.n_orders):
+            fail(f"{what}: order counts differ {gpu.n_orders.tolist()} vs "
+                 f"{cpu.n_orders.tolist()}")
+        for name in ("i_total", "i1"):
+            a, b = getattr(gpu, name).cpu(), getattr(cpu, name)
+            if not torch.allclose(a, b, rtol=1e-9, atol=1e-11 * float(b.abs().max())):
+                fail(f"{what}: {name} max rel err {rel_err(a, b):.3e}")
+        out["cases"].append({"grid": [grid.nb_angles, grid.nb_layers, grid.spacing],
+                             "surface": surface, "n_orders": cpu.n_orders.tolist(),
+                             "rel_err": rel_err(gpu.i_total.cpu(), cpu.i_total)})
+    emit(out)
+
+
+def phase_fused_canonical(device, sweep_abs):
+    """The fused engine's path at full width.  Returns the kernels-line
+    entries of the two sweep kernels."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.config import SolverOptions
+    from sos_rt_tpu_torch.fused import FusedBatch, take_columns, to_summary
+    from sos_rt_tpu_torch.metrics import solution_metrics
+    from sos_rt_tpu_torch.parallel import solve_batch
+    from sos_rt_tpu_torch.parallel.mesh import mega_small_ok
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import PhaseTables
+
+    preset = get_preset("hg")
+    grid, B = preset.grid, 64
+    opts = SolverOptions(surface="lambertian", dtype="float32", mm="bf16x3")
+    scenes = dataclasses.replace(
+        random_scenes(preset, B, device, np.random.default_rng(SEED)),
+        tau_star_atm=torch.full((B,), 0.044, dtype=torch.float64, device=device))
+    if mega_small_ok(scenes, grid):
+        fail("fused_canonical: mega_small_ok is true, the batch would not take the "
+             "fused engine")
+    tables = {dt: PhaseTables.from_models(grid, 0.5, atm=preset.atm, aer=preset.aer,
+                                          dtype=dt, device=device)
+              for dt in (torch.float32, torch.float64)}
+    torch.cuda.reset_peak_memory_stats()
+    wall, sol, launches = timed_solve(lambda: solve_batch(
+        scenes, tables[torch.float32], grid, opts, engine="mega", outputs="summary",
+        device=device))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fused_launches_ok(launches, int(sol.n_orders.max()), "fused_canonical")
+    if not (bool(torch.isfinite(sol.i_toa).all())
+            and bool(torch.isfinite(sol.i_surface).all())):
+        fail("fused_canonical summary rows are not finite")
+    if tuple(sol.i_toa.shape) != (B, 2 * grid.nb_angles):
+        fail(f"fused_canonical summary shape {tuple(sol.i_toa.shape)}")
+
+    # 8 columns against the float64 fused solve on the card
+    sub = torch.arange(8, device=device) * (B // 8)
+    ref = to_summary(solve_batch(take_columns(scenes, sub), tables[torch.float64], grid,
+                                 SolverOptions(surface="lambertian", dtype="float64"),
+                                 engine="fused", device=device))
+    f64_check = f32_vs_f64(sol, ref, sub, "fused_canonical")
+
+    # each sweep kernel at this run's block (the whole batch)
+    fb = FusedBatch(scenes, tables[torch.float32], grid, opts, device)
+    L, M = grid.nb_layers, grid.nb_angles
+    calls = sweep_calls(fb, second_order_source(fb))
+    rel, absd = sweeps_vs_plain(calls, "float32", "at the canonical block")
+    times = sweep_block_times(calls, B, L, M, 4)
+    emit({"phase": "fused_canonical", "grid": [M, L], "batch": B, "dtype": "float32",
+          "mm": "bf16x3", "tau_star_atm": 0.044, "entered_as": "engine='mega'",
+          "mega_small_ok": False, "metrics": solution_metrics(sol, wall_s=wall),
+          "launches": launches, "f64_check": f64_check, "peak_memory_gb": peak_gb,
+          "block_shape": [B, L, M], "rel_err": rel, "block": times})
+    return [{"name": name, "route": "cuda", "source": FUSED_SOURCE,
+             "replaces": REPLACES[name], "launches": launches[name],
+             "max_abs_err": max(absd[name], sweep_abs[name]), "max_rel_err": rel[name],
+             **times[name], "library_ms": None} for name in calls]
+
+
+def phase_fused_sweep(device):
+    """The sweep batch through the fused engine beside the mega engine.
+    Returns {sweep kernel: max absolute error against plain}."""
+    import torch
+
+    from sos_rt_tpu_torch.fused import FusedBatch
+    from sos_rt_tpu_torch.metrics import solution_metrics
+    from sos_rt_tpu_torch.parallel import solve_batch
+
+    preset, scenes, tables = fwc_batch(device)
+    B = scenes.mu0.shape[0]
+    t32 = tables[torch.float32]
+    runs = {"fused": [], "mega": []}
+    for engine in ("mega", "fused", "fused", "mega"):           # in turns
+        outputs = "summary" if engine == "mega" else "full"
+        runs[engine].append(timed_solve(lambda: solve_batch(
+            scenes, t32, preset.grid, preset.opts, engine=engine, outputs=outputs,
+            sort="predict", device=device)))
+    (wall, sol, launches), (mega_wall, mega, _) = runs["fused"][-1], runs["mega"][-1]
+    fused_launches_ok(launches, int(sol.n_orders.max()), "fused_sweep")
+    if not bool(torch.isfinite(sol.i_total).all()):
+        fail("fused_sweep: non-finite values")
+    differs = float((sol.n_orders != mega.n_orders).float().mean())
+    if not differs <= FUSED_N_DIFFERS_FRAC:
+        fail(f"fused_sweep: order counts differ from the mega engine's in "
+             f"{differs:.3%} of the columns (limit {FUSED_N_DIFFERS_FRAC:.1%})")
+    same = sol.n_orders == mega.n_orders
+    rows = torch.cat([sol.i_total[:, 0], sol.i_total[:, -1]], 1)[same]
+    mega_rows = torch.cat([mega.i_toa, mega.i_surface], 1)[same]
+    keep = mega_rows.abs() > 1e-12 * mega_rows.abs().max()
+    p50 = float(((rows - mega_rows).abs()[keep] / mega_rows.abs()[keep]).median())
+    if not p50 < F64_P50_TOL:
+        fail(f"fused_sweep: p50 relative difference to the mega engine {p50:.3e}")
+    del sol, runs
+    torch.cuda.empty_cache()
+
+    fb = FusedBatch(scenes, t32, preset.grid, preset.opts, device)
+    L, M = preset.grid.nb_layers, preset.grid.nb_angles
+    calls = sweep_calls(fb, second_order_source(fb))
+    rel, absd = sweeps_vs_plain(calls, "float32", "at the sweep block")
+    emit({"phase": "fused_sweep", "grid": [M, L], "batch": B,
+          "fused": {"wall_s": wall, "col_per_s": B / wall, "launches": launches},
+          "mega": {"wall_s": mega_wall, "col_per_s": B / mega_wall,
+                   "metrics": solution_metrics(mega, wall_s=mega_wall)},
+          "n_differs_frac": differs, "n_differs_limit": FUSED_N_DIFFERS_FRAC,
+          "p50_rel_to_mega": p50, "block_shape": [B, L, M], "rel_err": rel,
+          "block": sweep_block_times(calls, B, L, M, 4)})
+    return absd
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     import torch
@@ -848,7 +1129,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     t0 = time.perf_counter()
     phase_card()
-    phase_kernels(device)
+    sweep_abs = phase_kernels(device)
     phase_slice_f64(device)
     kernels = phase_canonical(device)
     fwc_abs = phase_fwc_sweep(device)
@@ -856,7 +1137,12 @@ def main(argv=None) -> int:
         k["max_abs_err"] = max(k["max_abs_err"], fwc_abs[k["name"]])
     mega = phase_resident(device)
     mega["launches"] = phase_sweep_cli(device)
-    emit({"kernels": kernels + [mega]})
+    phase_fused_f64(device)
+    sweeps = phase_fused_canonical(device, sweep_abs)
+    fused_abs = phase_fused_sweep(device)
+    for k in sweeps:         # the largest difference over every block tried
+        k["max_abs_err"] = max(k["max_abs_err"], fused_abs[k["name"]])
+    emit({"kernels": kernels + [mega] + sweeps})
     print(nvidia_smi(), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,4 +11,4 @@ from sos_rt_tpu_torch.config import (GridSpec, NotPortedError, Scene,  # noqa: F
                                      SolverOptions)
 from sos_rt_tpu_torch.solver import PhaseTables, Solution  # noqa: F401
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

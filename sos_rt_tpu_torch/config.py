@@ -33,9 +33,9 @@ MU0_RESONANCE_TOL = 1e-4
 
 class NotPortedError(NotImplementedError):
     """A route of the TPU package that this port does not run yet (the
-    reference and fused engines, the host-side first order, meshes, grids
-    or batches the mega path cannot take).  Raised instead of
-    falling back; see ROADMAP.md for the order in which they come."""
+    reference engine, the host-side first order of the mega engine, meshes,
+    the Mie models, per-order outputs).  Raised instead of falling back;
+    see ROADMAP.md for the order in which they come."""
 
 
 def full_precision_matmul() -> None:

@@ -1,0 +1,240 @@
+// Hand-written Hopper kernels of the fused engine's two radiance sweeps.
+//
+// They replace the two Pallas TPU kernels of sos_rt_tpu/ops/pallas_sweeps.py:
+//   sos_down_sweep <- _down_kernel  (forward affine recurrence over layers
+//                                    for all mu <= 0 columns)
+//   sos_up_sweep   <- _up_kernel    (reverse recurrence from the surface BC
+//                                    with the quadrature dropped at the two
+//                                    region joins, the smoothing deltas of
+//                                    the two join rows chained through the
+//                                    layers, and the mu -> 0+ smoothing walk
+//                                    on every layer row)
+// Plain PyTorch versions of the same functions live beside their wrappers
+// in sos_rt_tpu_torch/ops/fused_sweeps.py; the CPU runs those.
+//
+// Layout: the engine's own (B, L, M), angles contiguous.  The TPU kernels
+// work on (L, bt, M) transposes so that a layer step is one vector tile;
+// here a warp reads a run of angles of one (column, layer) row, which is
+// coalesced as it stands, so nothing is transposed or padded.  The source
+// jn may be a view of a wider (B, L, 2M) tensor: its column and layer
+// strides are arguments (the angle stride is 1).  Per-(column, layer)
+// scalars are pack (B, L, 8), per-column scalars cpar (B, 8).
+//
+// Both kernels are bound by bytes: one read of jn and one write of the
+// field per call (plus pack), against a few operations and one to three
+// exponentials per value.  What the design does about it:
+// - down: one thread per (column, angle) keeps S and J_{t-1} in registers
+//   and walks the layers; the loads do not depend on the recurrence, so the
+//   unrolled loop keeps several in flight.
+// - up: one thread block per column, threads over angles.  Pass 1 walks
+//   t = L-1 .. 0 with the carry and the two join rows in registers and
+//   writes the raw field into the output buffer: the TPU kernel's (L, bt, M)
+//   VMEM scratch has no counterpart here, and a thread reads back in pass 2
+//   only what it wrote itself, from L2.  Pass 2 walks t = 0 .. L-1, adds the
+//   chained corrections and runs the smoothing walk on each row: a
+//   block-wide first-index minimum over the second differences (warp
+//   shuffles, then one value per warp through shared memory), then the
+//   blend.  Rows and the per-warp minima are double-buffered in shared
+//   memory, so a layer costs two block barriers.
+// The arithmetic keeps one order of separately rounded operations (built
+// with -fmad=false) in the kernel and in the plain version, because the walk
+// compares a second difference with 1e-4: a last-bit change can move a
+// blend endpoint.
+// Every entry point returns cudaGetLastError(); the caller raises on non-0.
+#include <cuda_runtime.h>
+
+namespace {
+
+enum { PK_TAU = 0, PK_DROP, PK_CH1, PK_CH2, PK_R1, PK_R2, PK_HDT_DN, PK_HDT_UP, PK_W };
+enum { CP_TAU_R1 = 0, CP_TAU_R2 = 1, CP_W = 8 };
+constexpr int BIG_LANE = 1 << 30;
+constexpr int MAX_WARPS = 32;
+
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
+__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
+__device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_t(double a, double b) { return fmax(a, b); }
+
+// S_t = a S_{t-1} + w (J_{t-1} a + J_t), a = exp(2 w / mu), I_t = -S_t / mu
+// for column blockIdx.x and angle n; w = pack[.., PK_HDT_DN] (0 at t = 0).
+template <typename T>
+__global__ void down_sweep(const T* __restrict__ jn, const T* __restrict__ pack,
+                           const T* __restrict__ mu, T* __restrict__ out, int L,
+                           int M, long long jn_bs, long long jn_ls) {
+  const int b = blockIdx.x;
+  const int n = blockIdx.y * blockDim.x + threadIdx.x;
+  if (n >= M) return;
+  const T inv_mu = T(1) / mu[n];
+  const T* jp = jn + (size_t)b * jn_bs + n;
+  const T* pk = pack + (size_t)b * L * PK_W + PK_HDT_DN;
+  T* op = out + (size_t)b * L * M + n;
+  T s = T(0), j_prev = T(0);
+#pragma unroll 4
+  for (int t = 0; t < L; ++t) {
+    const T w = pk[(size_t)t * PK_W];
+    const T j_t = jp[(size_t)t * jn_ls];
+    const T a = exp_t((T(2) * w) * inv_mu);
+    s = a * s + w * (j_prev * a + j_t);
+    j_prev = j_t;
+    op[(size_t)t * M] = -s * inv_mu;
+  }
+}
+
+// min of v over the block: warp shuffles, then one value per warp through
+// sred (nw ints).  Holds one block barrier; the caller alternates between
+// two sred buffers, so none is needed after the read.
+__device__ __forceinline__ int block_min(int v, int* sred, int nw) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int m = BIG_LANE;
+  for (int w = 0; w < nw; ++w) m = min(m, sred[w]);
+  return m;
+}
+
+// The mu -> 0+ smoothing walk on the row staged in sv (lane 0 = mu = 0+):
+// the first lane k in 1 .. M-3 whose second difference is <= 1e-4 (M-3 when
+// none is) gives the blend endpoint idx = k + 1; lanes 1 .. idx-1 become the
+// linear blend between sv[0] and sv[idx] with weight mu_n / mu_idx.  Returns
+// lane n's value.  All threads of the block call it after a barrier that
+// follows the staging.
+template <typename T>
+__device__ __forceinline__ T smooth_lane(const T* sv, const T* smu, int n, int M,
+                                         int* sred, int nw) {
+  int cand = BIG_LANE;
+  if (n >= 1 && n <= M - 3) {
+    const T d = abs_t((sv[n] - sv[n + 1]) - (sv[n + 1] - sv[n + 2]));
+    if (d <= T(1e-4)) cand = n;
+  }
+  const int idx = min(block_min(cand, sred, nw), M - 3) + 1;
+  T v = n < M ? sv[n] : T(0);
+  if (n >= 1 && n < idx) {
+    const T w = smu[n] / smu[idx];
+    v = (T(1) - w) * sv[0] + w * sv[idx];
+  }
+  return v;
+}
+
+// One block per column, thread n = angle lane (lane 0 = mu = 0+, where
+// I = jn).  Shared memory: two rows of M values and the mu row.
+template <typename T>
+__global__ void up_sweep(const T* __restrict__ jn, const T* __restrict__ pack,
+                         const T* __restrict__ cpar, const T* __restrict__ mu,
+                         const T* __restrict__ bc, T* out, int L, int M,
+                         long long jn_bs, long long jn_ls) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int sred[2][MAX_WARPS];
+  T* srow = reinterpret_cast<T*>(smem_raw);       // rows 0 and 1
+  T* smu = srow + 2 * M;
+  const int b = blockIdx.x, n = threadIdx.x, nw = blockDim.x >> 5;
+  const bool act = n < M, lane0 = n == 0;
+  const T mu_n = act ? mu[n] : T(1);
+  if (act) smu[n] = mu_n;
+  const T inv_mu = T(1) / (mu_n == T(0) ? T(1) : mu_n);
+  const T* pk = pack + (size_t)b * L * PK_W;
+  const T* jp = jn + (size_t)b * jn_bs + n;
+  T* op = out + (size_t)b * L * M + n;
+
+  // pass 1: the reverse recurrence; slot L-1 is the identity step (drop = 1,
+  // w = 0); the rows at the two joins are picked up by their one-hot lanes
+  T row1 = T(0), row2 = T(0);
+  if (act) {
+    T s = lane0 ? jp[(size_t)(L - 1) * jn_ls] : bc[(size_t)b * M + n];
+    T j_next = T(0);
+#pragma unroll 2
+    for (int t = L - 1; t >= 0; --t) {
+      const T* p = pk + (size_t)t * PK_W;
+      const T w = p[PK_HDT_UP];
+      const T j_t = jp[(size_t)t * jn_ls];
+      const T a = exp_t((T(-2) * w) * inv_mu);
+      T c = w * inv_mu * (j_t + j_next * a);
+      if (p[PK_DROP] > T(0.5)) c = T(0);
+      s = a * s + c;
+      if (lane0) s = j_t;
+      j_next = j_t;
+      op[(size_t)t * M] = s;
+      row1 = row1 + p[PK_R1] * s;
+      row2 = row2 + p[PK_R2] * s;
+    }
+  }
+
+  // smoothing deltas at the two joins; d1 reaches row 2 attenuated
+  const T tau_r1 = cpar[(size_t)b * CP_W + CP_TAU_R1];
+  const T tau_r2 = cpar[(size_t)b * CP_W + CP_TAU_R2];
+  if (act) srow[n] = row1;
+  __syncthreads();
+  const T d1 = smooth_lane<T>(srow, smu, n, M, sred[0], nw) - row1;
+  const T att_12 = exp_t(-max_t(tau_r1 - tau_r2, T(0)) * inv_mu);
+  const T row2c = row2 + d1 * att_12;
+  if (act) srow[M + n] = row2c;
+  __syncthreads();
+  const T d2 = smooth_lane<T>(srow + M, smu, n, M, sred[1], nw) - row2c;
+
+  // pass 2: chained corrections + the smoothing walk on every layer row
+  for (int t = 0; t < L; ++t) {
+    const int q = t & 1;
+    const T* p = pk + (size_t)t * PK_W;
+    const T tau_t = p[PK_TAU];
+    const T att1 = exp_t(-max_t(tau_r1 - tau_t, T(0)) * inv_mu);
+    const T att2 = exp_t(-max_t(tau_r2 - tau_t, T(0)) * inv_mu);
+    T corr = p[PK_CH1] * d1 * att1 + p[PK_CH2] * d2 * att2;
+    if (lane0) corr = T(0);
+    T* sv = srow + q * M;
+    if (act) sv[n] = op[(size_t)t * M] + corr;
+    __syncthreads();
+    const T sm = smooth_lane<T>(sv, smu, n, M, sred[q], nw);
+    if (act) op[(size_t)t * M] = sm;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 float32, 1 float64.  jn_bs / jn_ls: elements between two columns /
+// two layers of jn.
+int sos_down_sweep(int dtype, const void* jn, const void* pack, const void* mu,
+                   void* out, int B, int L, int M, long long jn_bs,
+                   long long jn_ls, void* stream) {
+  if (B < 1 || L < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  const int nt = M >= 128 ? 128 : ((M + 31) / 32) * 32;
+  const dim3 grid(B, (M + nt - 1) / nt);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    down_sweep<float><<<grid, nt, 0, st>>>((const float*)jn, (const float*)pack,
+                                           (const float*)mu, (float*)out, L, M,
+                                           jn_bs, jn_ls);
+  } else if (dtype == 1) {
+    down_sweep<double><<<grid, nt, 0, st>>>((const double*)jn, (const double*)pack,
+                                            (const double*)mu, (double*)out, L, M,
+                                            jn_bs, jn_ls);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int sos_up_sweep(int dtype, const void* jn, const void* pack, const void* cpar,
+                 const void* mu, const void* bc, void* out, int B, int L, int M,
+                 long long jn_bs, long long jn_ls, void* stream) {
+  const int nt = ((M + 31) / 32) * 32;
+  if (B < 1 || L < 1 || M < 4 || nt > 32 * MAX_WARPS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    up_sweep<float><<<B, nt, 3 * M * sizeof(float), st>>>(
+        (const float*)jn, (const float*)pack, (const float*)cpar, (const float*)mu,
+        (const float*)bc, (float*)out, L, M, jn_bs, jn_ls);
+  } else if (dtype == 1) {
+    up_sweep<double><<<B, nt, 3 * M * sizeof(double), st>>>(
+        (const double*)jn, (const double*)pack, (const double*)cpar,
+        (const double*)mu, (const double*)bc, (double*)out, L, M, jn_bs, jn_ls);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

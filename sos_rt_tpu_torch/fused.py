@@ -1,18 +1,25 @@
-"""Batched whole-solve entry point: the mega engine.
+"""Batched whole-solve entry points: the mega engine and the fused engine.
 
-Counterpart of the mega part of ``sos_rt_tpu/fused.py``:
-:class:`SweepSummary`, :func:`solve_batch_mega` (``i1='kernel'``; the
-streamed execution and the resident one) and :func:`predict_order_count`.
+Counterpart of ``sos_rt_tpu/fused.py``: :class:`SweepSummary`,
+:func:`solve_batch_mega` (``i1='kernel'``; the streamed execution and the
+resident one), :func:`predict_order_count` and :func:`solve_batch_fused`.
 
-Host preparation (τ profiles, mixing weights, pack rows, the in-kernel
-I₁ inputs, the static and stacked operators) follows the TPU package
-step for step.  The order loop then runs either streamed
+The mega engine's host preparation (τ profiles, mixing weights, pack rows,
+the in-kernel I₁ inputs, the static and stacked operators) follows the TPU
+package step for step.  Its order loop then runs either streamed
 (``ops/megastream.py``: two kernel launches per order and block, the loop
 on the host) or resident (``ops/megakernel.py::mega_call``: one launch for
 the whole batch, the loop on the device); :func:`resolve_stream` picks.
-Routes the port does not run yet raise
-:class:`~sos_rt_tpu_torch.config.NotPortedError` instead of falling back:
-a grid that fails ``mega_supported``, and ``i1='host'``.
+
+The fused engine keeps the radiance field as (down, up) halves of
+(B, L, M), runs the wide per-order work in the two sweep kernels of
+``ops/fused_sweeps.py`` and the narrow small-µ and polyfit-band fixes (a
+handful of columns) in plain torch between them; the Jₙ products are plain
+matrix products outside any kernel.  It takes every grid, and it is where
+:func:`solve_batch_mega` sends a whole batch whose grid fails
+``mega_supported`` (small-µ columns that a column's polyfit band does not
+cover), as the TPU package does.  ``i1='host'`` of the mega engine is not
+ported yet and raises :class:`~sos_rt_tpu_torch.config.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -28,9 +35,13 @@ from sos_rt_tpu_torch.config import (SCENE_FIELDS, GridSpec, NotPortedError,
 from sos_rt_tpu_torch.grids import tau_profile
 from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.ops import megastream as ms
-from sos_rt_tpu_torch.ops.first_order import first_order_mega_inputs
+from sos_rt_tpu_torch.ops.first_order import first_order, first_order_mega_inputs
+from sos_rt_tpu_torch.ops.fused_sweeps import build_pack, down_sweep, up_sweep_smooth
+from sos_rt_tpu_torch.ops.precision import make_split_dot
 from sos_rt_tpu_torch.ops.source import source_operator
-from sos_rt_tpu_torch.ops.sweeps import band_choice, stencils_for
+from sos_rt_tpu_torch.ops.sweeps import (EXP_CLAMP, band_choice,
+                                         polyfit_band_variants,
+                                         select_band_choice, stencils_for)
 from sos_rt_tpu_torch.solver import PhaseTables, Solution
 
 
@@ -46,6 +57,13 @@ class SweepSummary:
     tau: Any            # (B, L)
     idx_up: Any
     idx_down: Any
+
+
+def to_summary(sol: Solution) -> SweepSummary:
+    """Reduce a full Solution to the summary rows."""
+    return SweepSummary(i_toa=sol.i_total[:, 0, :], i_surface=sol.i_total[:, -1, :],
+                        n_orders=sol.n_orders, converged=sol.converged,
+                        tau=sol.tau, idx_up=sol.idx_up, idx_down=sol.idx_down)
 
 
 PREDICT_MIN_BATCH = 4096      # below this the predictor solve isn't worth it
@@ -309,7 +327,10 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     resident kernel (ops/megakernel.py::mega_call: one launch, the loop on
     the device, a thread block per tile of columns), ``None`` (default)
     the resident kernel where :func:`resolve_stream` finds the grid small
-    enough.  Each block of ``cols_per_block`` columns (streamed; default by
+    enough.  A grid that needs the small-µ machinery (``mega_supported``
+    false: small-µ columns without the ``allow_small`` grant) hands the
+    whole batch to :func:`solve_batch_fused`, reduced to the summary rows
+    where those were asked for.  Each block of ``cols_per_block`` columns (streamed; default by
     :func:`default_cols_per_block`) or tile (resident; default by
     megakernel.default_cols_per_tile) runs its own order loop; per-column
     results do not depend on the block size, the order of the columns or
@@ -333,9 +354,8 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     device = resolve_device(device)
     stencils = stencils_for(grid)
     if not mk.mega_supported(grid, stencils, allow_small=allow_small):
-        raise NotPortedError(
-            f"{grid} needs the small-µ machinery of the fused engine "
-            "(mega_supported is false), which is not ported yet; see ROADMAP.md")
+        sol = solve_batch_fused(scenes, tables, grid, opts, device=device)
+        return to_summary(sol) if outputs == "summary" else sol
     scenes = scene_on(scenes, device)
     tables = tables_on(tables, device)
 
@@ -378,3 +398,210 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
         return SweepSummary(i_toa=toa, i_surface=srf, **common)
     i_total = torch.cat([res[0][..., :M], res[1][..., :M]], dim=2)[:B]
     return Solution(i_total=i_total, i1=None, **common)
+
+
+class FusedBatch:
+    """The loop invariants of one fused solve and its order step.
+
+    Built from (B,)-batched ``scenes`` and ``tables`` already on
+    ``device``: τ profiles and mixing weights, the first order ``i1``
+    (B, L, 2M), the four source operators, the kernels' ``pack`` /
+    ``cparams`` / µ rows, the small-µ machinery and the band selection.
+    """
+
+    def __init__(self, scenes: Scene, tables: PhaseTables, grid: GridSpec,
+                 opts: SolverOptions, device):
+        full_precision_matmul()
+        stencils = stencils_for(grid)
+        dtype = torch_dtype(opts.dtype)
+        L, M = grid.nb_layers, grid.nb_angles
+        mu_np = np.asarray(grid.mu(), np.float64)
+        on_dev = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=device)
+        cast = lambda x: x.to(dtype)
+        mu = on_dev(mu_np)
+        w_mu = on_dev(grid.trapz_weights())
+        self.stencils, self.surface, self.dtype, self.device = (
+            stencils, opts.surface, dtype, device)
+        self.L, self.M, self.B = L, M, scenes.mu0.shape[0]
+
+        # ---- per-column geometry ----
+        tau, idx_up, idx_down = tau_profile(
+            cast(scenes.tau_star_atm), cast(scenes.tau_star_aer), cast(scenes.z0),
+            cast(scenes.z_up), cast(scenes.z_down), L)
+        tau = tau.to(dtype).contiguous()
+        dtau_aer = scenes.tau_star_aer / (idx_down + 1 - idx_up)
+        dtau_atm = scenes.tau_star_atm / L
+        w_atm = (dtau_atm / (dtau_atm + dtau_aer)).to(dtype)
+        w_aer = (dtau_aer / (dtau_atm + dtau_aer)).to(dtype)
+        self.tau, self.idx_up, self.idx_down = tau, idx_up, idx_down
+
+        # P0 may be per column (one row per column's µ0); the P matrices
+        # are shared
+        self.i1 = first_order(
+            opts.surface, tau, mu, M, cast(scenes.mu0), cast(scenes.grd_alb),
+            cast(scenes.alb_atm), cast(scenes.alb_aer), tables.p0_atm, tables.p_atm,
+            tables.p0_aer, tables.p_aer, idx_up, idx_down, w_atm, w_aer, w_mu)
+
+        a_full_atm = source_operator(tables.p_atm.to(dtype), w_mu)
+        a_full_aer = source_operator(tables.p_aer.to(dtype), w_mu)
+        operators = (a_full_atm[:M], a_full_atm[M:], a_full_aer[:M], a_full_aer[M:])
+        # matmul precision mode for the Jₙ products (the dominant operations
+        # on canonical-width grids)
+        mm = opts.mm if dtype == torch.float32 else None
+        if mm in ("bf16x3", "bf16x5"):
+            self.dots = [make_split_dot(a, mm, dtype) for a in operators]
+        else:
+            self.dots = [lambda x, a=a: x @ a for a in operators]
+
+        # ---- loop-invariant batched masks ----
+        t_idx = torch.arange(L, device=device)
+        self.in_layer = ((t_idx[None, :] >= idx_up[:, None])
+                         & (t_idx[None, :] <= idx_down[:, None]))[..., None]
+        self.alb_atm = cast(scenes.alb_atm)[:, None, None]
+        self.alb_aer = cast(scenes.alb_aer)[:, None, None]
+        self.wa3 = w_atm[:, None, None]
+        self.wr3 = w_aer[:, None, None]
+
+        self.mu_down_safe = on_dev(np.where(mu_np[:M] == 0, -1.0, mu_np[:M]))
+        self.mu_up_row = torch.cat([torch.zeros((1,), dtype=dtype, device=device),
+                                    mu[M + 1:]])
+        self.pack, self.cparams = build_pack(tau, idx_up, idx_down, dtype)
+
+        # small-µ machinery
+        self.small_cols = on_dev(stencils.small_cols, torch.long)
+        self.has_small = stencils.small_cols.size > 0
+        if self.has_small:
+            mu_s = mu[self.small_cols]
+            self.mu_s = mu_s
+            self.taylor_mask = on_dev(stencils.taylor_mask, torch.bool)
+            region_start = torch.where(
+                t_idx[None, :] < idx_up[:, None], 0,
+                torch.where(t_idx[None, :] <= idx_down[:, None], idx_up[:, None],
+                            idx_down[:, None] + 1))               # (B, L)
+            cutoff = tau[:, :, None] - 5.0 * torch.abs(mu_s)[None, None, :]
+            first_k = torch.searchsorted(tau, cutoff.reshape(self.B, -1).contiguous(),
+                                         side="left").reshape(cutoff.shape)
+            self.k0 = torch.minimum(torch.maximum(first_k, region_start[:, :, None]),
+                                    t_idx[None, :, None])
+            tau_k0 = torch.gather(tau[:, :, None].expand(self.k0.shape), 1, self.k0)
+            self.att_k0 = torch.exp(torch.clamp(
+                (tau[:, :, None] - tau_k0) / mu_s[None, None, :], EXP_CLAMP, 0.0))
+            self.prev_t = torch.clamp(t_idx - 1, 0, L - 1)
+            self.taylor_den = torch.where(t_idx[None, :, None] > 0,
+                                          (tau - tau[:, self.prev_t])[:, :, None], 1.0)
+            self.taylor_on = (t_idx[None, :] > region_start)[:, :, None]
+
+        # polyfit band selection
+        self.choice_a = band_choice(torch.gather(tau, 1, (idx_up - 1)[:, None])[:, 0])
+        self.choice_bc = band_choice(torch.gather(tau, 1, idx_down[:, None])[:, 0])
+        pmask = on_dev(stencils.poly_mask, torch.bool)
+        valid_a = select_band_choice(pmask, self.choice_a[:, None])   # (B, band_max)
+        valid_bc = select_band_choice(pmask, self.choice_bc[:, None])
+        self.in_a_col = (t_idx[None, :] < idx_up[:, None])[..., None]
+        self.band_valid = torch.where(self.in_a_col, valid_a[:, None, :],
+                                      valid_bc[:, None, :])
+        self.band_cols = M - 1 - torch.arange(stencils.band_max, device=device)
+
+        self.mirror_bc = torch.arange(M - 2, -1, -1, device=device)   # cols M-2..0
+        self.grd = cast(scenes.grd_alb)
+        self.lamb_w = (w_mu[:M] * mu[:M])[None, :]
+
+    def source(self, dn, up):
+        """Jₙ (B, L, 2M) from the previous order's halves."""
+        jn_atm = self.dots[0](dn) + self.dots[1](up)
+        jn_aer = self.dots[2](dn) + self.dots[3](up)
+        jn_atm = (self.alb_atm / 4.0) * jn_atm
+        jn_aer = (self.alb_aer / 4.0) * jn_aer
+        return torch.where(self.in_layer, self.wa3 * jn_atm + self.wr3 * jn_aer, jn_atm)
+
+    def narrow_down_fixes(self, raw, jn):
+        """The small-µ columns (windowed value or Taylor limit), the zeroed
+        µ=0⁻ column and the polyfit band, written into ``raw`` in place."""
+        M = self.M
+        if self.has_small:
+            raw_s = raw[:, :, self.small_cols]
+            windowed = raw_s - self.att_k0 * torch.gather(raw_s, 1, self.k0)
+            jn_s = jn[:, :, self.small_cols]
+            dj = torch.where(self.taylor_on,
+                             (jn_s - jn_s[:, self.prev_t]) / self.taylor_den, 0.0)
+            taylor = -jn_s + self.mu_s[None, None, :] * dj
+            raw[:, :, self.small_cols] = torch.where(self.taylor_mask[None, None, :],
+                                                     taylor, windowed)
+        raw[:, :, M - 1] = 0.0
+        polys, _ = polyfit_band_variants(raw, self.stencils)  # (4, B, L, band_max)
+        poly = torch.where(self.in_a_col,
+                           select_band_choice(polys, self.choice_a[:, None, None]),
+                           select_band_choice(polys, self.choice_bc[:, None, None]))
+        cur = raw[:, :, self.band_cols]
+        raw[:, :, self.band_cols] = torch.where(self.band_valid, poly, cur)
+        return raw
+
+    def surface_bc(self, dn):
+        """The upward sweep's boundary row (B, M) from the new I↓ at the
+        surface (lane 0, the µ=0⁺ column, is unused)."""
+        surf = dn[:, self.L - 1, :]
+        if self.surface == "lambertian":
+            f_down = -torch.sum(self.lamb_w * surf, dim=1)
+            return (2.0 * self.grd * f_down)[:, None].expand(self.B, self.M).contiguous()
+        bc = self.grd[:, None] * surf[:, self.mirror_bc]
+        return torch.cat([torch.zeros((self.B, 1), dtype=self.dtype,
+                                      device=self.device), bc], dim=1)
+
+    def order_step(self, dn_prev, up_prev):
+        """One scattering order: (I↓, I↑) of order n from those of n−1.
+        The halves of Jₙ go to the kernels as views, with their strides."""
+        M = self.M
+        jn = self.source(dn_prev, up_prev)
+        raw = down_sweep(jn[:, :, :M], self.pack, self.mu_down_safe)
+        dn = self.narrow_down_fixes(raw, jn)
+        up = up_sweep_smooth(jn[:, :, M:], self.pack, self.cparams, self.mu_up_row,
+                             self.surface_bc(dn))
+        return dn, up
+
+
+def solve_batch_fused(scenes: Scene, tables: PhaseTables, grid: GridSpec,
+                      opts: SolverOptions, block_b: int = 32, device=None):
+    """Batched SOS solve over (B,)-batched ``scenes`` with the fused engine.
+
+    Per order (:meth:`FusedBatch.order_step`): the Jₙ source products
+    (``opts.mm`` None or 'highest': full precision; 'bf16x3' / 'bf16x5' in
+    float32: the split products of ops/precision.py), the downward sweep
+    kernel, the narrow small-µ and polyfit-band fixes, the surface BC, and
+    the upward sweep kernel with its smoothing.  The order loop runs on the
+    host with one sync per order; a column accumulates only while its own
+    ratio is above ``tol``.  Returns a :class:`Solution` with ``i1``.
+    ``block_b`` is the TPU kernels' batch block and has no effect here: the
+    kernels take any B and any L.  ``device`` defaults to CUDA.
+    """
+    device = resolve_device(device)
+    fb = FusedBatch(scene_on(scenes, device), tables_on(tables, device), grid, opts,
+                    device)
+    L, M, dtype = fb.L, fb.M, fb.dtype
+    tol = torch.tensor(opts.tol, dtype=dtype, device=device)
+
+    def ratio_fn(dn_new, up_new, dn_tot, up_tot):
+        # 0/0 → 0 (treated converged): degenerate scenes with zero radiance
+        # at a TOA/surface angle must not poison the criterion
+        div = lambda a, b: torch.where(b != 0, a / torch.where(b != 0, b, 1.0), 0.0)
+        r_toa = div(up_new[:, 0, :], up_tot[:, 0, :]).amax(dim=1)
+        r_srf = div(dn_new[:, L - 1, :], dn_tot[:, L - 1, :]).amax(dim=1)
+        return torch.maximum(r_toa, r_srf)
+
+    dn_prev, up_prev = fb.i1[:, :, :M], fb.i1[:, :, M:]
+    dn_tot, up_tot = dn_prev.clone(), up_prev.clone()
+    # explicit above-tol seed (the loop must take ≥ 1 step); max(1/I1) would
+    # be inf/NaN for any zero I1 entry in degenerate scenes
+    ratio = torch.full((fb.B,), 2.0 * float(opts.tol), dtype=dtype, device=device)
+    n = torch.ones((fb.B,), dtype=torch.int32, device=device)
+    while bool(((ratio >= tol).any() & (n.max() < opts.max_orders)).item()):
+        dn_prev, up_prev = fb.order_step(dn_prev, up_prev)
+        active = ratio >= tol
+        a3 = active[:, None, None]
+        dn_tot = torch.where(a3, dn_tot + dn_prev, dn_tot)
+        up_tot = torch.where(a3, up_tot + up_prev, up_tot)
+        ratio = torch.where(active, ratio_fn(dn_prev, up_prev, dn_tot, up_tot), ratio)
+        n = n + active.to(torch.int32)
+
+    return Solution(i_total=torch.cat([dn_tot, up_tot], dim=-1), i1=fb.i1, n_orders=n,
+                    converged=ratio < tol, tau=fb.tau, idx_up=fb.idx_up,
+                    idx_down=fb.idx_down)

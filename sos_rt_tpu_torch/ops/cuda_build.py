@@ -20,11 +20,11 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sos_rt_tpu_torch")
-SOURCES = ("megastream", "megakernel")
+SOURCES = ("megastream", "megakernel", "fused_sweeps")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_P, _I, _D, _Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 # argument types of every C entry point, by library
 SIGNATURES = {
     "megastream": {
@@ -35,6 +35,10 @@ SIGNATURES = {
     "megakernel": {
         "sos_mega_blocks": [_I] * 4,
         "sos_mega": [_I] * 4 + [_P] * 21 + [_I] * 8 + [_D, _P],
+    },
+    "fused_sweeps": {
+        "sos_down_sweep": [_I] + [_P] * 4 + [_I] * 3 + [_Q, _Q, _P],
+        "sos_up_sweep": [_I] + [_P] * 6 + [_I] * 3 + [_Q, _Q, _P],
     },
 }
 

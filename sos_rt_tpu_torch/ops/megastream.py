@@ -31,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from sos_rt_tpu_torch.ops import cuda_build
+from sos_rt_tpu_torch.ops import cuda_build, fused_sweeps
 from sos_rt_tpu_torch.ops.megakernel import (
     CP_CONST, CP_GRD, PK_ASTAR, PK_CDN, PK_CHOICE, PK_COEF_AER, PK_COEF_ATM,
     PK_CUP, PK_GS, PK_HDT_DN, PK_HDT_UP, PK_R1, PK_R2, RC_EMU_DN, RC_EMU_UP,
@@ -272,7 +272,8 @@ def passB(pack, sdn, jnup, cpar, ops: StreamOps):
 
 passI.launches = passA.launches = passB.launches = 0
 KERNELS = (passI, passA, passB)              # the streamed loop's kernels
-ALL_KERNELS = KERNELS + (mega_call,)         # every kernel wrapper of the port
+# every kernel wrapper of the port
+ALL_KERNELS = KERNELS + (mega_call,) + fused_sweeps.KERNELS
 
 
 def reset_launches() -> None:

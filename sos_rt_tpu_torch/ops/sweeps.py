@@ -3,7 +3,9 @@
 - the µ→0⁻ polyfit band (SOS_Aer_In_limit.py:113-141) has four possible
   static widths (main_lambertian.py:344-347); its np.polyfit stencils are
   precomputed per width and selected per column by τ thresholds;
-- the small-µ column set (|µ| < 0.01) and its Taylor mask.
+- the small-µ column set (|µ| < 0.01) and its Taylor mask;
+- :func:`polyfit_band_variants` / :func:`select_band_choice`, the band
+  extrapolation the fused engine applies between its two sweep kernels.
 
 The scan-based sweeps of the reference engine are a later slice.
 """
@@ -16,7 +18,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sos_rt_tpu_torch.config import MU_THRESHOLD, MU_VERY_SMALL_THRESHOLD
+from sos_rt_tpu_torch.config import (MU_THRESHOLD, MU_VERY_SMALL_THRESHOLD,
+                                     full_precision_matmul)
 
 SMOOTH_TOL = 1e-4   # second-difference walk threshold (main_lambertian.py:406)
 EXP_CLAMP = -80.0   # clamp for masked-out exponents
@@ -113,3 +116,28 @@ def band_choice(tau_ref):
     return torch.where(tau_ref <= 0.0625, 0,
                        torch.where(tau_ref <= 1.0, 1,
                                    torch.where(tau_ref < 4.0, 2, 3)))
+
+
+def polyfit_band_variants(i_down, stencils: SweepStencils):
+    """Extrapolated band values for all four static band widths.
+
+    ``i_down`` is (..., M) with any leading (column, layer) axes.  Returns
+    (polys (4, ..., band_max), valids (4, band_max)); the caller selects
+    by the per-column band choice (:func:`select_band_choice`)."""
+    full_precision_matmul()
+    dev = i_down.device
+    polys = []
+    for c in range(4):
+        src = torch.as_tensor(stencils.poly_src[c], device=dev)
+        w = torch.as_tensor(stencils.poly_w[c], dtype=i_down.dtype, device=dev)
+        polys.append(i_down[..., src] @ w.T)
+    return torch.stack(polys), torch.as_tensor(stencils.poly_mask, device=dev)
+
+
+def select_band_choice(stacked, choice):
+    """stacked[choice] for a choice tensor with values in {0..3} that
+    broadcasts against stacked[c]."""
+    out = stacked[0]
+    for c in range(1, 4):
+        out = torch.where(choice == c, stacked[c], out)
+    return out

@@ -1,10 +1,12 @@
 """Batched solving on one GPU: scene broadcast, sort keys, buckets.
 
-Counterpart of ``sos_rt_tpu/parallel/mesh.py`` for ``engine='mega'`` on a
-single device.  Meshes (column data parallelism over several GPUs), the
-reference and fused engines, and batches that fail
-:func:`mega_small_ok` raise :class:`~sos_rt_tpu_torch.config.NotPortedError`
-until their slices land (ROADMAP.md).
+Counterpart of ``sos_rt_tpu/parallel/mesh.py`` for ``engine='mega'`` and
+``engine='fused'`` on a single device.  A batch that fails
+:func:`mega_small_ok` goes from the mega engine to the fused engine as a
+whole, as in the TPU package.  Meshes (column data parallelism over several
+GPUs) and the reference engine raise
+:class:`~sos_rt_tpu_torch.config.NotPortedError` until their slices land
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -67,43 +69,54 @@ def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                 engine: str = "mega", block_b: int = 16, outputs: str = "full",
                 cols_per_block: int | None = None, sort: str = "score",
                 device=None):
-    """Solve a batch of columns with the mega engine on one GPU (resident
-    or streamed, as fused.resolve_stream picks for the grid).
+    """Solve a batch of columns on one GPU.
+
+    ``engine='mega'``: the whole-solve engine (resident or streamed, as
+    fused.resolve_stream picks for the grid).  When a column's polyfit band
+    does not cover the grid's small-µ columns (:func:`mega_small_ok` false)
+    the whole batch runs the fused engine instead; the kernels' launch
+    counts show which ran.  ``engine='fused'``: the fused engine
+    (fused.solve_batch_fused), full outputs only.
 
     scenes: Scene with (B,) fields (see :func:`broadcast_scene`).
     ``buckets > 1`` sorts the columns by the order-count key and solves
     equal-size chunks one after another; per-column results are
-    unchanged.  ``outputs='summary'`` returns a
+    unchanged.  ``outputs='summary'`` (mega engine) returns a
     :class:`sos_rt_tpu_torch.fused.SweepSummary`.  ``sort='predict'`` keys
     the sort on the coarse-grid order-count pre-solve
-    (fused.predict_order_count).  ``block_b`` is the fused engine's block
-    size, unused until that engine is ported.  ``device`` defaults to CUDA.
+    (fused.predict_order_count).  ``block_b`` is the TPU package's batch
+    block of the fused engine and has no effect here.  ``device`` defaults
+    to CUDA.
     """
-    from sos_rt_tpu_torch.fused import (scene_on, solve_batch_mega, sort_key,
-                                        tables_on, take_columns)
+    from sos_rt_tpu_torch.fused import (scene_on, solve_batch_fused,
+                                        solve_batch_mega, sort_key, tables_on,
+                                        take_columns)
 
-    if engine in ("reference", "fused"):
-        raise NotPortedError(f"engine={engine!r} is not ported yet; only "
-                             "engine='mega' runs (see ROADMAP.md)")
-    if engine != "mega":
+    if engine not in ("reference", "fused", "mega"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected 'reference', 'fused' or 'mega'")
+    if engine == "reference":
+        raise NotPortedError("engine='reference' is not ported yet; "
+                             "engine='mega' and engine='fused' run (see ROADMAP.md)")
+    if outputs != "full" and engine != "mega":
+        raise ValueError("outputs='summary' requires engine='mega'")
     if mesh is not None:
         raise NotPortedError("mesh= (multi-GPU column sharding) is not "
                              "ported yet; see ROADMAP.md")
     device = resolve_device(device)
     scenes = scene_on(scenes, device)
     tables = tables_on(tables, device)
-    if not mega_small_ok(scenes, grid):
-        raise NotPortedError(
-            "a column's polyfit band does not cover the grid's small-µ "
-            "columns (mega_small_ok is false); that needs the fused engine, "
-            "which is not ported yet (see ROADMAP.md)")
-    kw = dict(outputs=outputs, cols_per_block=cols_per_block, allow_small=True,
-              device=device)
+    if engine == "mega":
+        # allow_small grants the mega path a grid with small-µ columns;
+        # without it solve_batch_mega hands the batch to the fused engine
+        kw = dict(outputs=outputs, cols_per_block=cols_per_block,
+                  allow_small=mega_small_ok(scenes, grid), device=device)
+        one = lambda s, t, srt: solve_batch_mega(s, t, grid, opts, sort=srt, **kw)
+    else:
+        one = lambda s, t, srt: solve_batch_fused(s, t, grid, opts, block_b=block_b,
+                                                  device=device)
     if buckets <= 1:
-        return solve_batch_mega(scenes, tables, grid, opts,
-                                sort="predict" if sort == "predict" else True, **kw)
+        return one(scenes, tables, "predict" if sort == "predict" else True)
     b = scenes.mu0.shape[0]
     if b % buckets:
         raise ValueError(f"batch {b} not divisible by buckets {buckets}")
@@ -114,8 +127,7 @@ def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     outs = []
     for i in range(buckets):
         sl = slice(i * chunk, (i + 1) * chunk)
-        outs.append(solve_batch_mega(take_columns(scenes, sl), tables.take(sl),
-                                     grid, opts, sort=False, **kw))
+        outs.append(one(take_columns(scenes, sl), tables.take(sl), False))
     stacked = dataclasses.replace(outs[0], **{
         f.name: torch.cat([getattr(o, f.name) for o in outs])
         for f in dataclasses.fields(outs[0]) if getattr(outs[0], f.name) is not None})

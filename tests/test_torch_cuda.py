@@ -20,6 +20,9 @@ smoothing blend (its 1e-4 threshold is discontinuous) and change a few
 angles of a layer by 1e-3..1e-2 of scale, so there at most one value in a
 thousand may differ by more than 1e-4.  Against the streamed kernels,
 whose device functions it shares, the resident kernel agrees to the bit.
+The fused engine's two sweep kernels (down_sweep, up_sweep_smooth) repeat
+their plain versions operation by operation and must equal them to the bit,
+in float32 and in float64.
 """
 import dataclasses
 
@@ -28,7 +31,8 @@ import pytest
 import torch
 
 from sos_rt_tpu_torch.config import GridSpec, Scene, SolverOptions
-from sos_rt_tpu_torch.fused import prepare_batch, solve_batch_mega
+from sos_rt_tpu_torch.fused import FusedBatch, prepare_batch, solve_batch_mega
+from sos_rt_tpu_torch.ops import fused_sweeps as fs
 from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.ops import megastream as ms
 from sos_rt_tpu_torch.parallel import broadcast_scene, solve_batch
@@ -188,3 +192,72 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         mk.mega_call(sb.pack.float(), sb.cpar, sb.tiles, sb.ops, **kw)
     with pytest.raises(ValueError):
         mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, cols_per_tile=3, **kw)
+
+
+def _second_order(device, dtype, grid, surface="lambertian", batch=3):
+    """A fused batch and the Jₙ of its second order (smooth in µ, as the
+    sweeps meet it)."""
+    scenes, tables = _inputs(device, dtype, batch=batch, grid=grid)
+    opts = SolverOptions(surface=surface, dtype=str(dtype).split(".")[1])
+    fb = FusedBatch(scenes, tables, grid, opts, device)
+    m = grid.nb_angles
+    return fb, fb.source(fb.i1[:, :, :m], fb.i1[:, :, m:])
+
+
+@pytest.mark.parametrize("layers", [30, 64])
+@pytest.mark.parametrize("angles", [56, 64, 201, 501])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sweep_kernels_match_plain(cuda, dtype, angles, layers):
+    surface = "specular" if angles == 64 else "lambertian"
+    fb, jn = _second_order(cuda, dtype, GridSpec(angles, layers), surface)
+    m = angles
+    fs.down_sweep.launches = fs.up_sweep_smooth.launches = 0
+    got = fs.down_sweep(jn[:, :, :m], fb.pack, fb.mu_down_safe)
+    torch.cuda.synchronize()
+    want = fs.down_sweep_plain(jn[:, :, :m], fb.pack, fb.mu_down_safe)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want), float((got - want).abs().max())
+    bc = fb.surface_bc(fb.narrow_down_fixes(want.clone(), jn))
+    args = (jn[:, :, m:], fb.pack, fb.cparams, fb.mu_up_row, bc)
+    got = fs.up_sweep_smooth(*args)
+    torch.cuda.synchronize()
+    want = fs.up_sweep_smooth_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want), (float((got - want).abs().max()),
+                                    int((got != want).sum()))
+    assert fs.down_sweep.launches == fs.up_sweep_smooth.launches == 1
+    # the same source made contiguous gives the same bits
+    again = fs.up_sweep_smooth(jn[:, :, m:].contiguous(), *args[1:])
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("grid", [GRID, GridSpec(51, 24, spacing="gauss")],
+                         ids=["uniform", "gauss"])
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+def test_fused_engine_on_card_matches_cpu(cuda, surface, grid):
+    opts = SolverOptions(surface=surface, dtype="float64")
+    scenes, tables = _inputs(cuda, torch.float64, grid=grid)
+    fs.down_sweep.launches = fs.up_sweep_smooth.launches = 0
+    got = solve_batch(scenes, tables, grid, opts, engine="fused", device=cuda)
+    n = int(got.n_orders.max())
+    assert fs.down_sweep.launches == fs.up_sweep_smooth.launches == n - 1
+    want = solve_batch(scenes.map(lambda x: x.cpu()),
+                       PhaseTables(tables.p0_atm.cpu(), tables.p_atm.cpu(),
+                                   tables.p0_aer.cpu(), tables.p_aer.cpu()),
+                       grid, opts, engine="fused", device=torch.device("cpu"))
+    assert torch.equal(got.n_orders.cpu(), want.n_orders)
+    scale = float(want.i_total.abs().max())
+    torch.testing.assert_close(got.i_total.cpu(), want.i_total, rtol=1e-9,
+                               atol=1e-11 * scale)
+
+
+def test_sweep_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    fb, jn = _second_order(cuda, torch.float64, GRID)
+    m = GRID.nb_angles
+    with pytest.raises(ValueError):
+        fs.down_sweep(jn[:, :, :m], fb.pack.float(), fb.mu_down_safe)
+    with pytest.raises(ValueError):
+        fs.down_sweep(jn[:, :, :m].transpose(1, 2), fb.pack, fb.mu_down_safe)
+    with pytest.raises(ValueError):
+        fs.up_sweep_smooth(jn[:, :, m:], fb.pack, fb.cparams, fb.mu_up_row,
+                           torch.zeros((fb.B, m + 1), dtype=jn.dtype, device=cuda))

@@ -76,7 +76,8 @@ def test_resident_matches_jax_resident(pair):
 
 
 def test_cpu_runs_mega_plain_without_launches(pair):
-    assert [k.launches for k in ms.ALL_KERNELS] == [0, 0, 0, 0]
+    assert [k.launches for k in ms.ALL_KERNELS] == [0] * len(ms.ALL_KERNELS)
+    assert mk.mega_call in ms.ALL_KERNELS and set(ms.KERNELS) <= set(ms.ALL_KERNELS)
 
 
 @pytest.mark.parametrize("surface", ["lambertian", "specular"])

@@ -6,7 +6,8 @@ order counts and rtol 1e-9 / atol 1e-11·scale — the contract of
 tests/test_megastream.py — for both surfaces, a ragged batch, an odd
 angle count and a canonical-like small-µ grid.  Also: summary rows equal
 full rows, results do not depend on the sort or the block size, the
-routes outside the slice raise, and the package imports neither jax nor
+routes outside the port raise (and the fused engine takes what the mega path
+cannot), and the package imports neither jax nor
 sos_rt_tpu.  (The comparisons with the JAX mega engine in float32 and
 with its order-count predictor are in tests/test_torch_jax_mega.py.)
 """
@@ -151,9 +152,16 @@ def test_routes_outside_the_slice_raise(tables56):
 
     opts = JOpts(surface="lambertian", dtype="float64")
     port = port_inputs(jax_scenes(2), tables56, GRID, opts)
-    for engine in ("reference", "fused"):
-        _raises_not_ported(lambda: solve_batch(*port, engine=engine, device="cpu"))
+    _raises_not_ported(lambda: solve_batch(*port, engine="reference", device="cpu"))
+    # the fused engine is ported: it runs, and equals the mega engine
+    fused = solve_batch(*port, engine="fused", device="cpu")
+    mega = solve_batch(*port, engine="mega", device="cpu")
+    assert torch.equal(fused.n_orders, mega.n_orders) and fused.i1 is not None
+    assert_close_scaled(fused.i_total.numpy(), mega.i_total.numpy(), rtol=1e-9,
+                        atol_scale=1e-11)
     _raises_not_ported(lambda: solve_batch(*port, mesh=object(), device="cpu"))
+    _raises_not_ported(lambda: solve_batch(*port, engine="fused", mesh=object(),
+                                           device="cpu"))
     # the resident execution is ported: it runs, and equals the streamed one
     resident = solve_batch_mega(*port, stream=False, device="cpu")
     streamed = solve_batch_mega(*port, stream=True, device="cpu")
@@ -161,15 +169,21 @@ def test_routes_outside_the_slice_raise(tables56):
     assert torch.equal(resident.n_orders, streamed.n_orders)
     _raises_not_ported(lambda: solve_batch_mega(*port, i1="host", device="cpu"))
     # a small-µ grid without the band-coverage grant (mega_supported false)
+    # goes to the fused engine as a whole: a full solution with its i1
     small = JGrid(201, 48)
     port_small = port_inputs(jax_scenes(2), jax_tables(small), small, opts)
-    _raises_not_ported(lambda: solve_batch_mega(*port_small, device="cpu"))
-    # a batch whose thin τ leaves the small-µ columns uncovered
+    by_fused = solve_batch_mega(*port_small, device="cpu")
+    assert by_fused.i1 is not None and bool(by_fused.converged.all())
+    # a batch whose thin τ leaves the small-µ columns uncovered does too
     thin = jax_scenes(3, tau_star_atm=0.01, tau_star_aer=0.005)
     port_thin = port_inputs(thin, jax_tables(small), small, opts)
     assert not mega_small_ok(port_thin[0], port_thin[2])
     assert not j_mega_small_ok(thin, small)
-    _raises_not_ported(lambda: solve_batch(*port_thin, device="cpu"))
+    got = solve_batch(*port_thin, device="cpu")
+    ref = j_solve_batch(thin, jax_tables(small), small, opts)
+    np.testing.assert_array_equal(got.n_orders.numpy(), np.asarray(ref.n_orders))
+    assert_close_scaled(got.i_total.numpy(), ref.i_total, rtol=1e-9, atol_scale=1e-11)
+    assert got.i1 is not None
     for kind in ("mie", "lognormal", "eva", "wildfire"):
         _raises_not_ported(lambda: build_phase_tables(
             kind, GRID.mu(), 0.5, cache=False, indx=1.5, r=0.1, lambda0=0.55,

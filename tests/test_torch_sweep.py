@@ -218,7 +218,7 @@ def test_list_cmd(capsys):
     (["critical-albedo", "--tau-aer", "0.1,0.2", "--num", "4"], "forcing"),
     (["sweep", "--mesh", "--device", "cpu"], "mesh"),
     (["sweep", "--save-orders", "--batch", "4", "--device", "cpu"], "save_orders"),
-    (["sweep", "--engine", "fused", "--batch", "4", "--device", "cpu"], "fused"),
+    (["sweep", "--engine", "reference", "--batch", "4", "--device", "cpu"], "reference"),
 ])
 def test_commands_not_ported_exit_with_the_message(small, argv, what, capsys):
     with pytest.raises(SystemExit) as e:
