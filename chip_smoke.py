@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (sos_rt_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py        # about 3 min on an H100, the build included
+    python3 chip_smoke.py        # about 4 min on an H100, the build included
 
 Phases, one JSON line each on stdout:
 
@@ -77,8 +77,32 @@ Phases, one JSON line each on stdout:
                  engine='fused' beside the mega engine on the same batch:
                  col/s of both, the share of columns whose order counts
                  differ (limit 0.1%), the sweep kernels at this block.
+11. ``micro_ops`` the tools path: ``python -m sos_rt_tpu_torch.tools.micro_ops``
+                 (all 13 patterns, K1 = 128 and K2 = 1024 reps) through its
+                 main(), with its launch count; then each pattern's kernel
+                 against its plain version at k = 1 and 2 on make_inputs(0),
+                 each rep on the same input (the second rep's plain version
+                 on the kernel's first rep): to the bit but for the three
+                 products (1e-5 of scale);
+                 one library call a rep where one torch call computes it.
+12. ``micro_pass`` ``python -m sos_rt_tpu_torch.tools.micro_pass`` through its
+                 main(); each of the 9 (mode, g) pairs against its plain
+                 version to the bit, on the tool's ones and a random field.
+13. ``ablate``   the resident kernel's ablated builds (csrc/mega_ablate.cu):
+                 its build of the solve itself (no flag) equal to sos_mega to
+                 the bit on the sorted 4096-column sweep batch; each of the
+                 13 variants of tools/ablate_kernel.py against
+                 mega_plain(ablate=...) on its 1024-column batch (order
+                 counts all max_orders, rows within MEGA_BATCH_LIMITS but
+                 for ABLATE_AT_THRESHOLD, the columns that are off again in
+                 float64 within 1e-12); then
+                 ``python -m sos_rt_tpu_torch.tools.ablate_kernel`` (16
+                 orders, B=4096) through its main(): where mega_call's time
+                 goes.
 
-Then the ``{"kernels": [...]}`` line (max_abs_err over both paths' blocks), the nvidia-smi line and, last,
+Then the ``{"kernels": [...]}`` line (eight kernels; max_abs_err over both
+paths' blocks; for micro_ops and micro_pass the sums over their patterns'
+K1 calls and their pairs' calls), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  Without CUDA, or without the
 package beside it, it exits non-zero at once.
@@ -105,10 +129,30 @@ REPLACES = {
     "mega_call": "sos_rt_tpu/ops/megakernel.py:303",
     "down_sweep": "sos_rt_tpu/ops/pallas_sweeps.py:90",
     "up_sweep_smooth": "sos_rt_tpu/ops/pallas_sweeps.py:167",
+    "micro_ops": "tools/micro_ops.py:28",
+    "micro_pass": "tools/micro_pass.py:22",
 }
 SOURCE = "sos_rt_tpu_torch/csrc/megastream.cu"
 MEGA_SOURCE = "sos_rt_tpu_torch/csrc/megakernel.cu"
 FUSED_SOURCE = "sos_rt_tpu_torch/csrc/fused_sweeps.cu"
+MICRO_SOURCE = "sos_rt_tpu_torch/csrc/micro.cu"
+# micro_ops products against their plain versions, of scale: the kernel sums
+# 128 products in another order than cuBLAS (matmul) or sums the exact bf16
+# products with float32 accumulators where the plain version rounds a float64
+# sum once (matmul_high, matmul_def)
+MICRO_PRODUCT_TOL = 1e-5
+# the attribution run (tools/ablate_kernel.py's defaults) and the batch its
+# variants are held against mega_plain on
+ABLATE_ORDERS, ABLATE_BATCH, ABLATE_CHECK_BATCH = 16, 4096, 1024
+# variants whose float32 fields leave the smoothing threshold's resolution:
+# without the source product the field grows to ~7e3, where one float32 ulp
+# (~5e-4) exceeds the walk's 1e-4 threshold, and from a start of 1 on every
+# angle the walk meets near-zero second differences; float32 rounding then
+# decides the blend endpoints far more often than in the solve (measured on
+# an H100: 0.69% and 1.9% of row values off, at most 8.3e-2 of scale), so
+# MEGA_BATCH_LIMITS do not apply to them in float32; every column that is
+# off is held in float64 instead, to 1e-12
+ABLATE_AT_THRESHOLD = ("noconv,noi1", "noconv,nosrc")
 # a sweep kernel against its plain version, of scale: both do the same
 # separately rounded operations in the same order, so 0.0 is expected; a
 # last-bit difference would show as ~1e-7 (float32) and, where it moves a
@@ -402,6 +446,14 @@ def phase_card():
         with open(log) if os.path.exists(log) else open(os.devnull) as fh:
             ptxas[name] = [ln.strip() for ln in fh
                            if "registers" in ln or "spill" in ln]
+    # the ablated builds: one summary line for their 42 kernels
+    regs = [int(ln.split("Used ")[1].split()[0]) for ln in ptxas["mega_ablate"]
+            if "Used " in ln]
+    spills = [int(ln.split(" bytes spill stores")[0].split()[-1])
+              for ln in ptxas["mega_ablate"] if "bytes spill stores" in ln]
+    span = lambda v: [min(v, default=None), max(v, default=None)]
+    ptxas["mega_ablate"] = {"kernels": len(regs), "registers": span(regs),
+                            "spill_store_bytes": span(spills)}
     emit({"phase": "card", "nvidia_smi": nvidia_smi(),
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1111,6 +1163,239 @@ def phase_fused_sweep(device):
     return absd
 
 
+def run_tool(main, argv):
+    """A tool's main(argv) with its printed lines captured: (result, lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv)
+    return res, buf.getvalue().splitlines()
+
+
+def same_bits(a, b) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    import torch
+
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def micro_library_calls(xs, pk, a2):
+    """{pattern: one torch call that computes one rep, or None}.  float32
+    products with TF32 off; matmul_high's yardstick is that float32 product
+    (the function it approximates to 1e-7), matmul_def's a product of the
+    bf16 operands."""
+    import torch
+
+    from sos_rt_tpu_torch.ops import micro
+
+    v = xs[0]
+    half = torch.tensor(0.5, device=v.device)
+    c = torch.tensor(1.0001, device=v.device)
+    lanes = torch.arange(micro.M2, device=v.device)
+    maskc = torch.where(lanes < micro.M, c, 0.0)
+    nan = torch.full_like(v, float("nan"))
+    vb, ab = v.to(torch.bfloat16), a2.to(torch.bfloat16)
+    return {"fma": lambda: torch.addcmul(half, v, c),
+            "rowscalar": lambda: torch.addcmul(half, pk[..., 3:4], v),
+            "rowscalar_slice": lambda: torch.addcmul(half, pk[..., 3:4], v),
+            "lanemask": lambda: torch.mul(v, maskc),
+            "tworefs": lambda: torch.addcmul(nan, v, c),
+            "exp": None, "lanebrd": lambda: torch.addcmul(half, v, a2[0]),
+            "reduce": None, "roll": None, "smooth": None,
+            "matmul": lambda: v @ a2, "matmul_high": lambda: v @ a2,
+            "matmul_def": lambda: vb @ ab}
+
+
+def phase_micro_ops(device):
+    """The micro_ops tool on the card.  Returns its kernels-line entry."""
+    import torch
+
+    from sos_rt_tpu_torch.config import full_precision_matmul
+    from sos_rt_tpu_torch.ops import megastream as ms
+    from sos_rt_tpu_torch.ops import micro
+    from sos_rt_tpu_torch.tools import micro_ops as tool
+
+    full_precision_matmul()
+    ms.reset_launches()
+    res, lines = run_tool(tool.main, [])
+    torch.cuda.synchronize()
+    launches = micro.micro_ops_call.launches
+    if launches == 0 or sorted(r["pattern"] for r in res) != sorted(micro.PATTERNS):
+        fail(f"micro_ops: the tool launched {launches} kernels over "
+             f"{[r['pattern'] for r in res]}")
+
+    xs, pk, a2 = micro.make_inputs(0, device)
+    split, mu = micro.split_a2(a2), micro.mu_up(device)
+    products = ("matmul", "matmul_high", "matmul_def")
+    check, worst_abs = {}, 0.0
+    for pat in micro.PATTERNS:
+        first = micro.micro_ops_call(pat, 1, xs[0], pk, a2, split=split, mu=mu)
+        for k in (1, 2):
+            got = micro.micro_ops_call(pat, k, xs[0], pk, a2, split=split, mu=mu)
+            torch.cuda.synchronize()
+            # each rep on the same input: the second on the kernel's first
+            # (a bf16 pass rounds its operand to 8 bits, so a last-bit
+            # difference carried from the first rep would move the second
+            # by 2**-8 of a term)
+            want = micro.micro_ops_plain(pat, 1, xs[0] if k == 1 else first, pk, a2)
+            diff = (got - want).abs().nan_to_num(0.0)
+            scale = float(want.abs().nan_to_num(0.0).max()) or 1.0
+            rel = float(diff.max()) / scale
+            worst_abs = max(worst_abs, float(diff.max()))
+            check[f"{pat}@{k}"] = rel
+            if pat in products:
+                if not (bool(torch.isfinite(got).all()) and rel <= MICRO_PRODUCT_TOL):
+                    fail(f"micro_ops {pat} k={k}: rel err {rel:.3e} > {MICRO_PRODUCT_TOL}")
+            elif not same_bits(got, want):
+                fail(f"micro_ops {pat} k={k}: differs from plain ({rel:.3e} of scale)")
+
+    library = {}
+    for pat, call in micro_library_calls(xs, pk, a2).items():
+        library[pat] = None if call is None else timed(call, 20) * 1e3   # us a rep
+    per = {r["pattern"]: r for r in res}
+    finite = {pat: bool(torch.isfinite(micro.micro_ops_call(
+        pat, micro.K1, xs[0], pk, a2, split=split, mu=mu)).all()) for pat in micro.PATTERNS}
+    plain_ms = {pat: timed(lambda: micro.micro_ops_plain(pat, micro.K1, xs[0], pk, a2), 1)
+                for pat in micro.PATTERNS}
+    bounds = {pat: tool.call_bound_ms(pat, micro.K1) for pat in micro.PATTERNS}
+    by_ops = sum(b for b, by in bounds.values() if by == "operations")
+    emit({"phase": "micro_ops", "field": [micro.L, micro.C, micro.M2], "k1": micro.K1,
+          "k2": micro.K2, "tool_lines": lines, "launches": launches,
+          "rel_err_vs_plain": check,
+          "per_pattern": {pat: {**{k: per[pat].get(k) for k in ("us_per_pass", "bound_us",
+                                                           "bound_by", "plain_us_per_pass",
+                                                           "k1_ms", "k2_ms")},
+                                "library_us_per_rep": library[pat],
+                                "finite_at_k1": finite[pat]}
+                          for pat in micro.PATTERNS}})
+    total_bound = sum(b for b, _ in bounds.values())
+    return {"name": "micro_ops", "route": "cuda", "source": MICRO_SOURCE,
+            "replaces": REPLACES["micro_ops"], "launches": launches,
+            "max_abs_err": worst_abs, "max_rel_err": max(check.values()),
+            "ms": sum(per[p]["k1_ms"] for p in micro.PATTERNS),
+            "plain_ms": sum(plain_ms.values()), "bound_ms": total_bound,
+            "bound_by": "operations" if by_ops >= total_bound / 2 else "bytes",
+            "library_ms": None}
+
+
+def phase_micro_pass(device):
+    """The micro_pass tool on the card.  Returns its kernels-line entry."""
+    import torch
+
+    from sos_rt_tpu_torch.ops import megastream as ms
+    from sos_rt_tpu_torch.ops import micro
+    from sos_rt_tpu_torch.tools import micro_pass as tool
+
+    ms.reset_launches()
+    res, lines = run_tool(tool.main, [])
+    torch.cuda.synchronize()
+    launches = micro.micro_pass_call.launches
+    if launches == 0 or len(res) != len(micro.PASS_PAIRS):
+        fail(f"micro_pass: the tool launched {launches} kernels over {len(res)} pairs")
+    ones = torch.ones((micro.L, micro.C, micro.M2), dtype=torch.float32, device=device)
+    rand = micro.make_inputs(0, device)[0][1]
+    for mode, g in micro.PASS_PAIRS:
+        for x in (ones, rand):
+            got = micro.micro_pass_call(mode, g, x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, micro.micro_pass_plain(mode, g, x)):
+                fail(f"micro_pass {mode} g={g}: differs from plain")
+    field = micro.L * micro.C * micro.M2
+    t_bytes = 2 * field * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = micro.K * 2 * field / PEAK_OPS["float32"] * 1e3
+    emit({"phase": "micro_pass", "field": [micro.L, micro.C, micro.M2], "passes": micro.K,
+          "tool_lines": lines, "launches": launches, "pairs": res})
+    return {"name": "micro_pass", "route": "cuda", "source": MICRO_SOURCE,
+            "replaces": REPLACES["micro_pass"], "launches": launches,
+            "max_abs_err": 0.0, "max_rel_err": 0.0,
+            "ms": sum(r["ms"] for r in res), "plain_ms": sum(r["plain_ms"] for r in res),
+            "bound_ms": len(res) * max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": None}
+
+
+def phase_ablate(device):
+    """The resident kernel's ablated builds and the attribution tool."""
+    import torch
+
+    from sos_rt_tpu_torch import fused
+    from sos_rt_tpu_torch.fused import prepare_batch, take_columns
+    from sos_rt_tpu_torch.ops import megakernel as mk
+    from sos_rt_tpu_torch.tools import ablate_kernel as tool
+
+    # no flag: the ablated library's build of the solve equals sos_mega
+    preset, scenes, tables = fwc_batch(device)
+    key = fused.sort_key(scenes, tables[torch.float32], preset.grid, preset.opts,
+                         "predict", device)
+    cb = mk.default_cols_per_tile(mk.pad_angles(preset.grid.nb_angles))
+    sb = prepare_batch(take_columns(scenes, torch.argsort(key, stable=True)),
+                       tables[torch.float32], preset.grid, preset.opts,
+                       cols_per_block=cb, device=device)
+    kw = dict(tol=float(preset.opts.tol), max_orders=int(preset.opts.max_orders),
+              full=False)
+    solve = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **kw)
+    again = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, ablate_build=True, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(solve, again)):
+        fail("ablate: mega_ablate's build of the solve differs from sos_mega")
+
+    # each variant against mega_plain with the same flags, in float32 on the
+    # tool's batch; the columns that are off by more than F32_KERNEL_TOL of
+    # scale again in float64, where no sum's last bit reaches the smoothing
+    # threshold: there kernel and plain version must agree to 1e-12
+    import dataclasses
+
+    from sos_rt_tpu_torch.solver import PhaseTables
+
+    orders, batch = ABLATE_ORDERS, ABLATE_CHECK_BATCH
+    bscenes, btables, bopts = tool.fwc_batch(batch, orders, device)
+    t64 = PhaseTables.from_models(tool.GRID, 0.5, atm=("rayleigh", {}), aer=("fwc", {}),
+                                  dtype=torch.float64, device=device)
+    o64 = dataclasses.replace(bopts, dtype="float64")
+    bsb = prepare_batch(bscenes, btables, tool.GRID, bopts, cols_per_block=cb,
+                        device=device)
+    bkw = dict(tol=float(bopts.tol), max_orders=orders, full=False)
+    vs_plain, bad = {}, []
+    for ab in mk.ABLATE_VARIANTS:
+        got = mk.mega_call(bsb.pack, bsb.cpar, bsb.tiles, bsb.ops, ablate=ab, **bkw)
+        torch.cuda.synchronize()
+        want = mk.mega_plain(bsb.pack, bsb.cpar, bsb.tiles, bsb.ops, ablate=ab, **bkw)
+        if not (bool((got[-1][mk.ST_N] == orders).all())
+                and torch.equal(got[-1][mk.ST_N], want[-1][mk.ST_N])):
+            fail(f"ablate {ab}: order counts {got[-1][mk.ST_N].unique().tolist()}")
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            fail(f"ablate {ab}: non-finite values")
+        off = torch.cat([(g - w).abs() > F32_KERNEL_TOL * float(w.abs().max())
+                         for g, w in zip(got[:4], want[:4])], 1)
+        row = {"rows_off_frac": float(off.float().mean()),
+               "rows_max_rel": max(rel_err(g, w) for g, w in zip(got[:4], want[:4]))}
+        if ab not in ABLATE_AT_THRESHOLD:
+            bad += [f"{ab}: {k} = {v:.3e} > {MEGA_BATCH_LIMITS[k]}"
+                    for k, v in row.items() if not v <= MEGA_BATCH_LIMITS[k]]
+        cols = torch.nonzero(off.any(1))[:, 0]
+        row["columns_off"] = int(cols.numel())
+        if cols.numel():
+            sb64 = prepare_batch(take_columns(bscenes, cols), t64, tool.GRID, o64,
+                                 cols_per_block=cb, device=device)
+            g64 = mk.mega_call(sb64.pack, sb64.cpar, sb64.tiles, sb64.ops, ablate=ab, **bkw)
+            w64 = mk.mega_plain(sb64.pack, sb64.cpar, sb64.tiles, sb64.ops, ablate=ab,
+                                **bkw)
+            row["columns_off_f64_rel"] = max(rel_err(g, w) for g, w in zip(g64[:4], w64[:4]))
+            if not (torch.equal(g64[-1][mk.ST_N], w64[-1][mk.ST_N])
+                    and row["columns_off_f64_rel"] <= 1e-12):
+                bad.append(f"{ab}: float64 columns off by {row['columns_off_f64_rel']:.3e}")
+        vs_plain[ab] = row
+
+    res, lines = run_tool(tool.main, [str(orders), str(cb), str(ABLATE_BATCH)])
+    emit({"phase": "ablate", "solve_equals_sos_mega": True, "check_batch": batch,
+          "orders": orders, "vs_plain": vs_plain, "limits": MEGA_BATCH_LIMITS,
+          "tool_lines": lines, "attribution": res})
+    if bad:
+        fail("ablate: " + "; ".join(bad))
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     import torch
@@ -1142,7 +1427,9 @@ def main(argv=None) -> int:
     fused_abs = phase_fused_sweep(device)
     for k in sweeps:         # the largest difference over every block tried
         k["max_abs_err"] = max(k["max_abs_err"], fused_abs[k["name"]])
-    emit({"kernels": kernels + [mega] + sweeps})
+    micro_entries = [phase_micro_ops(device), phase_micro_pass(device)]
+    phase_ablate(device)
+    emit({"kernels": kernels + [mega] + sweeps + micro_entries})
     print(nvidia_smi(), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,11 @@
 // Device functions shared by the streamed kernels (megastream.cu) and the
-// resident whole-loop kernel (megakernel.cu): the tiled quad product, the
-// downward recurrence and the pass-B walk.  Both sources call the same
-// functions on the same arithmetic, so a column's fields come out bit for
-// bit the same whichever kernel computes them (the mu->0+ smoothing walk
-// compares a second difference with 1e-4: a last-bit change can move its
-// blend endpoint).
+// resident whole-loop kernel (megakernel.cu, mega_ablate.cu through
+// mega_body.cuh): the tiled quad product, the downward recurrence and the
+// pass-B walk; micro.cu takes the smoothing walk and the bf16 split from
+// here too.  The solve's sources call the same functions on the same
+// arithmetic, so a column's fields come out bit for bit the same whichever
+// kernel computes them (the mu->0+ smoothing walk compares a second
+// difference with 1e-4: a last-bit change can move its blend endpoint).
 //
 // Layout: a half-field of Cl local columns is (L, Cl, Mp) contiguous, angles
 // last, so row r = t*Cl + cl of the (L*Cl, Mp) matrix is one (layer, column)
@@ -38,6 +39,13 @@ enum { T_DDA = 0, T_DDR, T_DBA, T_DBR, T_UDA, T_UDR, T_RESDN, T_ROWA, T_ROWB,
        T_RESUP };
 enum { ST_N = 0, ST_CONV = 1, ST_RATIO = 2 };
 enum { MM_HIGHEST = 0, MM_BF16X3 = 1, MM_BF16X5 = 2 };
+// Ablation bits of the resident kernel (tools/ablate_kernel.py; the flags of
+// the TPU kernel's ``ablate`` string, megakernel._mega_kernel): each cuts a
+// stage out for timing attribution, and the results are wrong with any bit
+// set.  0 is the solve itself.
+enum { AB_NOCONV = 1, AB_NOI1 = 2, AB_NOSRC = 4, AB_NOLOOPS = 8, AB_NOPASSA = 16,
+       AB_NOPOLY = 32, AB_NOPASSB = 64, AB_NOBC = 128, AB_NOFIN = 256,
+       AB_NOSMOOTH = 512, AB_NORATIO = 1024 };
 constexpr int N_TAPS = 6;
 constexpr int BIG_ROW = 1 << 30;
 
@@ -239,7 +247,8 @@ template <typename T> struct EpiSource {
 
 // downward recurrence r_t = e^{2 hdt_dn_t / mu} r_{t-1} + cdn_t jn_t for
 // local column cl and angle n; sdn = r - hdt_up jn overwrites jn in place.
-template <typename T>
+// AB_NOLOOPS drops the carry: r_t = cdn_t jn_t.
+template <typename T, int AB = 0>
 __device__ __forceinline__ void down_scan_one(const T* __restrict__ pack,
                                               const PackMap& pm,
                                               const T* __restrict__ colc,
@@ -248,9 +257,15 @@ __device__ __forceinline__ void down_scan_one(const T* __restrict__ pack,
   T r = T(0);
   for (int t = 0; t < pm.L; ++t) {
     const size_t o = (size_t)(t * pm.Cl + cl) * Mp + n;
-    const T att = exp_t(T(2) * pack[pm.at(PK_HDT_DN, t, cl)] * emu);
-    const T jn = sdn[o];
-    r = att * r + pack[pm.at(PK_CDN, t, cl)] * jn;
+    T jn;
+    if constexpr ((AB & AB_NOLOOPS) != 0) {
+      jn = sdn[o];
+      r = pack[pm.at(PK_CDN, t, cl)] * jn;
+    } else {
+      const T att = exp_t(T(2) * pack[pm.at(PK_HDT_DN, t, cl)] * emu);
+      jn = sdn[o];
+      r = att * r + pack[pm.at(PK_CDN, t, cl)] * jn;
+    }
     sdn[o] = r - pack[pm.at(PK_HDT_UP, t, cl)] * jn;
   }
 }
@@ -338,6 +353,39 @@ __device__ __forceinline__ int group_min(int v, int* sred, int w0, int nw) {
   return m;
 }
 
+// The mu->0+ smoothing walk (megakernel._smooth_up) at angle n of one
+// up-half row of mr real angles staged in sv, whose value is f = sv[n] and
+// raw up mu mun; mu[mu_off + k] is the raw up mu of angle k.  The first
+// angle k in [1, mr - 3] whose second difference |sv[k] - 2 sv[k+1] +
+// sv[k+2]| is <= 1e-4 (mr - 3 if none) gives idx = k + 1; the angles
+// 1 <= n < idx take the blend of sv[0] and sv[idx] linear in mu, the others
+// keep f.  rmin(c) is the min of c over the threads of the row, one angle
+// each (an n outside [0, mr) takes no part); GroupMin does it for a group
+// of warps.  Called by pass_b_walk and by the micro_ops pattern `smooth`.
+template <typename T, class Min>
+__device__ __forceinline__ T smooth_up_walk(const T* sv, const T* mu, int mu_off, int mr,
+                                            int n, T mun, T f, Min rmin) {
+  int cand = BIG_ROW;
+  if (n >= 1 && n <= mr - 3) {
+    const T d = abs_t(sv[n] - T(2) * sv[n + 1] + sv[n + 2]);
+    if (d <= T(1e-4)) cand = n;
+  }
+  const int idx = min(rmin(cand), mr - 3) + 1;
+  T sm = f;
+  if (n >= 1 && n < idx) {
+    const T w = mun / mu[mu_off + idx];
+    sm = (T(1) - w) * sv[0] + w * sv[idx];
+  }
+  return sm;
+}
+
+// group_min over the warps [w0, w0 + nw) of the block, as a reducer
+struct GroupMin {
+  int* sred;
+  int w0, nw;
+  __device__ __forceinline__ int operator()(int c) const { return group_min(c, sred, w0, nw); }
+};
+
 template <typename T> struct PassBArgs {
   const T* pack; PackMap pm; const T* sdn; const T* jnup; const T* cpar;
   const T* colc; const int* tap_col; const T* tap_hi; const T* tap_lo;
@@ -359,8 +407,12 @@ struct NoSink {
 // Walk local column cl.  n is the thread's angle (any n >= Mp for a thread
 // without one), act whether it has a real one; gs points at the group's
 // shared memory, [w0, w0 + nw) are the group's warps.  sink(t, n, fv, sm)
-// sees every value the walk stores.
-template <typename T, int MODE, class Sink>
+// sees every value the walk stores.  AB (ablation bits, 0 for the solve):
+// AB_NOPOLY keeps the band rows of I_down as they are (the mu=0- row
+// zeroed), AB_NOBC starts the up carry from jn_up of the deepest layer on
+// every angle, AB_NOLOOPS drops the carry (r_t = src_t), AB_NOFIN skips
+// the join corrections and the smoothing, AB_NOSMOOTH the smoothing.
+template <typename T, int MODE, int AB = 0, class Sink>
 __device__ __forceinline__ void pass_b_walk(const PassBArgs<T>& a, int cl, int n,
                                             bool act, T* gs, int* sred, int w0,
                                             int nw, Sink& sink) {
@@ -393,6 +445,7 @@ __device__ __forceinline__ void pass_b_walk(const PassBArgs<T>& a, int cl, int n
     const int rr = t * Cl + cl;
     T fv = act ? -a.sdn[(size_t)rr * Mp + n] * ivdn : T(0);
     if (n >= mr - 1) fv = T(0);                // mu=0- row and pad rows
+    if constexpr ((AB & AB_NOPOLY) != 0) return fv;
     stage(fv);
     const int choice = (int)pk(PK_CHOICE, t);
     if (act && n < slot) {
@@ -419,24 +472,28 @@ __device__ __forceinline__ void pass_b_walk(const PassBArgs<T>& a, int cl, int n
 
   // surface BC from the deepest layer's band-fixed I_down
   const T fvs = band_fixed(L - 1);
-  stage(fvs);
   T rcar = T(0);
-  if (act) {
-    if (n == 0) {
-      rcar = a.jnup[(size_t)((L - 1) * Cl + cl) * Mp];
-    } else {
-      T acc = T(0);
-      for (int k = 0; k < Mp; ++k) {
-        T x[3];
+  if constexpr ((AB & AB_NOBC) != 0) {
+    if (act) rcar = a.jnup[(size_t)((L - 1) * Cl + cl) * Mp + n];
+  } else {
+    stage(fvs);
+    if (act) {
+      if (n == 0) {
+        rcar = a.jnup[(size_t)((L - 1) * Cl + cl) * Mp];
+      } else {
+        T acc = T(0);
+        for (int k = 0; k < Mp; ++k) {
+          T x[3];
 #pragma unroll
-        for (int h = 0; h < NX; ++h) x[h] = sx[h * Mp + k];
-        acc = add_terms<T, MODE>(acc, a.bct_hi[(size_t)k * Mp + n],
-                                 Parts<MODE>::NW > 1 ? a.bct_lo[(size_t)k * Mp + n] : T(0), x);
+          for (int h = 0; h < NX; ++h) x[h] = sx[h * Mp + k];
+          acc = add_terms<T, MODE>(acc, a.bct_hi[(size_t)k * Mp + n],
+                                   Parts<MODE>::NW > 1 ? a.bct_lo[(size_t)k * Mp + n] : T(0), x);
+        }
+        rcar = a.cpar[a.pm.cp(CP_GRD, a.pm.c0 + cl)] * acc;
       }
-      rcar = a.cpar[a.pm.cp(CP_GRD, a.pm.c0 + cl)] * acc;
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   T q1 = T(0), q2 = T(0);
   const T corr = n >= 1 ? T(1) : T(0);
@@ -450,31 +507,28 @@ __device__ __forceinline__ void pass_b_walk(const PassBArgs<T>& a, int cl, int n
     const T jiv = ivup * jn;
     const T src = n == 0 ? jn : pk(PK_CUP, t) * jiv;
     const T gsv = pk(PK_GS, t) * jiv;
-    rcar = attu * rcar + src;
+    if constexpr ((AB & AB_NOLOOPS) != 0) rcar = src;
+    else rcar = attu * rcar + src;
     T f = rcar - gsv;
-    q1 = q1 * attu;
-    q2 = q2 * attu;
-    f = f + corr * (q1 + q2);
-    // mu->0+ smoothing walk (megakernel._smooth_up)
-    stage(f);
-    int cand = BIG_ROW;
-    if (n >= 1 && n <= mr - 3) {
-      const T d = abs_t(sv[n] - T(2) * sv[n + 1] + sv[n + 2]);
-      if (d <= T(1e-4)) cand = n;
+    T sm[1] = {f};
+    if constexpr ((AB & AB_NOFIN) == 0) {
+      q1 = q1 * attu;
+      q2 = q2 * attu;
+      f = f + corr * (q1 + q2);
+      sm[0] = f;
+      if constexpr ((AB & AB_NOSMOOTH) == 0) {
+        stage(f);
+        sm[0] = smooth_up_walk<T>(sv, colc, RC_MUUP * Mp, mr, n, muup, f,
+                                  GroupMin{sred, w0, nw});
+      }
+      const T d = sm[0] - f;
+      if (pk(PK_R1, t) > T(0.5)) q1 = d;
+      if (pk(PK_R2, t) > T(0.5)) q2 = d;
     }
-    const int idx = min(group_min(cand, sred, w0, nw), mr - 3) + 1;
-    T sm = f;
-    if (n >= 1 && n < idx) {
-      const T w = muup / colc[RC_MUUP * Mp + idx];
-      sm = (T(1) - w) * sv[0] + w * sv[idx];
-    }
-    const T d = sm - f;
-    if (pk(PK_R1, t) > T(0.5)) q1 = d;
-    if (pk(PK_R2, t) > T(0.5)) q2 = d;
     if (act) {
       a.fdn[o] = fv;
-      a.fup[o] = sm;
-      sink(t, n, fv, sm);
+      a.fup[o] = sm[0];
+      sink(t, n, fv, sm[0]);
     }
     __syncthreads();
   }

@@ -318,7 +318,7 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                      opts: SolverOptions, cols_per_block: int | None = None,
                      sort=True, mm: str | None = None, outputs: str = "full",
                      i1: str = "kernel", allow_small: bool = False,
-                     stream: bool | None = None, device=None):
+                     stream: bool | None = None, device=None, ablate: str = ""):
     """Whole-solve mega engine over (B,)-batched ``scenes``.
 
     ``stream`` selects the execution of the same arithmetic: ``True`` the
@@ -345,6 +345,12 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     column's µ→0⁻ band covers the grid's small-µ columns
     (parallel.mesh.mega_small_ok).  ``outputs``: 'full' → Solution,
     'summary' → SweepSummary.  ``device`` defaults to CUDA.
+
+    ``ablate`` (megakernel.ABLATE_FLAGS, comma-separated; results are
+    wrong) cuts stages out of the resident kernel for timing attribution
+    (tools/ablate_kernel.py); it needs the resident execution
+    (``stream=False``, or ``None`` where that resolves to it) and raises
+    ``ValueError`` streamed.
     """
     if outputs not in ("full", "summary"):
         raise ValueError(f"unknown outputs mode {outputs!r}")
@@ -353,6 +359,11 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                              "(i1='kernel') is ported; see ROADMAP.md")
     device = resolve_device(device)
     stencils = stencils_for(grid)
+    mk.ablate_flags(ablate)
+    if ablate and (resolve_stream(stream, grid, torch_dtype(opts.dtype))
+                   or not mk.mega_supported(grid, stencils, allow_small=allow_small)):
+        raise ValueError("ablate flags act on the resident kernel only "
+                         "(stream=False); the streamed passes take none")
     if not mk.mega_supported(grid, stencils, allow_small=allow_small):
         sol = solve_batch_fused(scenes, tables, grid, opts, device=device)
         return to_summary(sol) if outputs == "summary" else sol
@@ -367,7 +378,7 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                                grid, opts, cols_per_block=cols_per_block,
                                sort=False, mm=mm, outputs=outputs,
                                allow_small=allow_small, stream=stream,
-                               device=device)
+                               device=device, ablate=ablate)
         return take_columns(sol, inv)
 
     stream = resolve_stream(stream, grid, torch_dtype(opts.dtype))
@@ -383,7 +394,7 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     else:
         res = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
                            full=outputs == "full",
-                           cols_per_tile=sb.cols_per_block)
+                           cols_per_tile=sb.cols_per_block, ablate=ablate)
         if outputs == "full":       # (L, Bp, Mp) → (Bp, L, Mp)
             res = (res[0].transpose(0, 1), res[1].transpose(0, 1), res[2])
 

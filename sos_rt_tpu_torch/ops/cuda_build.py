@@ -20,7 +20,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sos_rt_tpu_torch")
-SOURCES = ("megastream", "megakernel", "fused_sweeps")
+SOURCES = ("megastream", "megakernel", "fused_sweeps", "micro", "mega_ablate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
@@ -39,6 +39,14 @@ SIGNATURES = {
     "fused_sweeps": {
         "sos_down_sweep": [_I] + [_P] * 4 + [_I] * 3 + [_Q, _Q, _P],
         "sos_up_sweep": [_I] + [_P] * 6 + [_I] * 3 + [_Q, _Q, _P],
+    },
+    "micro": {
+        "sos_micro_ops": [_I, _I] + [_P] * 8,
+        "sos_micro_pass": [_I, _I] + [_P] * 3,
+    },
+    "mega_ablate": {
+        "sos_mega_ablate_blocks": [_I] * 5,
+        "sos_mega_ablate": [_I] * 5 + [_P] * 21 + [_I] * 8 + [_D, _P],
     },
 }
 

@@ -420,8 +420,37 @@ def default_cols_per_tile(mp: int) -> int:
     return max(1, min(MAX_COLS_PER_TILE, 256 // group))
 
 
+# The ablation flags of the TPU kernel (megakernel._mega_kernel's
+# ``ablate``), in the order of their bits (AB_* in csrc/sos_tiles.cuh).
+# Each cuts a stage out for timing attribution; results are wrong with any
+# flag set.
+ABLATE_FLAGS = ("noconv", "noi1", "nosrc", "noloops", "nopassA", "nopoly",
+                "nopassB", "nobc", "nofin", "nosmooth", "noratio")
+# the variants of tools/ablate_kernel.py, the ones csrc/mega_ablate.cu builds
+ABLATE_VARIANTS = (
+    "noconv", "noconv,noi1", "noconv,nosrc", "noconv,noloops", "noconv,nopoly",
+    "noconv,nosmooth", "noconv,nofin", "noconv,nobc", "noconv,noratio",
+    "noconv,nopassA", "noconv,nopassB", "noconv,nosrc,noloops,nopoly,nofin",
+    "noconv,nopassA,nopassB,noratio")
+
+
+def ablate_flags(ablate: str) -> frozenset:
+    """The set of flags of a comma-separated ``ablate`` string."""
+    ab = frozenset(f for f in ablate.split(",") if f) if ablate else frozenset()
+    unknown = sorted(ab - set(ABLATE_FLAGS))
+    if unknown:
+        raise ValueError(f"unknown ablate flags {unknown}; known: {ABLATE_FLAGS}")
+    return ab
+
+
+def ablate_mask(ablate: str) -> int:
+    """The AB bit mask of an ``ablate`` string."""
+    ab = ablate_flags(ablate)
+    return sum(1 << i for i, f in enumerate(ABLATE_FLAGS) if f in ab)
+
+
 def mega_plain(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
-               full: bool):
+               full: bool, ablate: str = ""):
     """Plain PyTorch version of the whole-loop kernel for one block of C
     columns that share the loop: pack (PK_W, L, C), cpar (CP_W, C), tiles
     (NI, C, Mp), ``ops`` a megastream.StreamOps.
@@ -432,12 +461,25 @@ def mega_plain(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
     BC and pass B, adds the new fields to the totals of the columns still
     active, and renews those columns' ratio and n.  Returns (toa_dn,
     toa_up, srf_dn, srf_up (C, Mp), stats (3, C)), or with ``full``
-    (itot_dn, itot_up (L, C, Mp), stats)."""
+    (itot_dn, itot_up (L, C, Mp), stats).
+
+    ``ablate`` (any of ABLATE_FLAGS, comma-separated) cuts the stages the
+    TPU kernel's flags cut: 'noconv' runs to ``max_orders`` with n counting
+    every order, 'noi1' starts from 1 instead of I₁, 'nopassA' lets pass B
+    read sdn = jₙ↑ = 0, 'nopassB' skips pass B with its BC and
+    accumulation (the ratio is taken on the fields as they stand),
+    'noratio' keeps the seed ratio; the others act inside the passes
+    (megastream.passA_plain, passB_plain)."""
     from sos_rt_tpu_torch.ops import megastream as ms
 
-    fdn, fup = ms.passI_plain(pack, tiles, cpar, ops)           # pre: I₁
-    L, C, Mp = fdn.shape
-    dtype, dev = fdn.dtype, fdn.device
+    ab = ablate_flags(ablate)
+    _, L, C = pack.shape
+    Mp, dtype, dev = ops.mp, pack.dtype, pack.device
+    if "noi1" in ab:
+        fdn = fup = torch.ones((L, C, Mp), dtype=dtype, device=dev)
+    else:
+        fdn, fup = ms.passI_plain(pack, tiles, cpar, ops)       # pre: I₁
+    sdn = jnup = torch.zeros_like(fdn)
     real = torch.arange(Mp, device=dev) < ops.nb_angles
     if full:
         itot = [fdn.clone(), fup.clone()]
@@ -447,27 +489,32 @@ def mega_plain(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
         rows = lambda: tuple(itot)
     ratio = torch.full((C,), 2.0 * tol, dtype=dtype, device=dev)
     n = torch.ones((C,), dtype=dtype, device=dev)
-    while bool((ratio >= tol).any()) and bool(n.max() < max_orders):
+    while (("noconv" in ab or bool((ratio >= tol).any()))
+           and bool(n.max() < max_orders)):
         active = (ratio >= tol).to(dtype)
         a2 = active[:, None]
-        sdn, jnup = ms.passA_plain(pack, fdn, fup, ops)
-        fdn, fup = ms.passB_plain(pack, sdn, jnup, cpar, ops)   # BC + pass B
-        if full:
-            itot[0] += a2 * fdn
-            itot[1] += a2 * fup
-        else:
-            for k, new in enumerate((fdn[0], fup[0], fdn[L - 1], fup[L - 1])):
-                itot[k] = itot[k] + a2 * new
-        _, tot_up, tot_dn, _ = rows()
-        rnew = ratio_rows_tile(fup[0], tot_up, fdn[L - 1], tot_dn, real)
-        ratio = torch.where(active > 0.5, rnew, ratio)
-        n = n + active
+        if "nopassA" not in ab:
+            sdn, jnup = ms.passA_plain(pack, fdn, fup, ops, ab=ab)
+        if "nopassB" not in ab:
+            fdn, fup = ms.passB_plain(pack, sdn, jnup, cpar, ops, ab=ab)  # BC + pass B
+            if full:
+                itot[0] += a2 * fdn
+                itot[1] += a2 * fup
+            else:
+                for k, new in enumerate((fdn[0], fup[0], fdn[L - 1], fup[L - 1])):
+                    itot[k] = itot[k] + a2 * new
+        if "noratio" not in ab:
+            _, tot_up, tot_dn, _ = rows()
+            rnew = ratio_rows_tile(fup[0], tot_up, fdn[L - 1], tot_dn, real)
+            ratio = torch.where(active > 0.5, rnew, ratio)
+        n = n + (1.0 if "noconv" in ab else active)
     stats = torch.stack([n, (ratio < tol).to(dtype), ratio])
     return (*itot, stats)
 
 
 def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
-              full: bool, cols_per_tile: int | None = None):
+              full: bool, cols_per_tile: int | None = None, ablate: str = "",
+              ablate_build: bool | None = None):
     """The whole order loop of a batch in one kernel launch.  Replaces
     sos_rt_tpu/ops/megakernel.py::_mega_kernel (mega_call).
 
@@ -479,7 +526,13 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
     operations of the source product; one thread block per tile keeps the
     tile's four field planes in an L2-sized workspace and evaluates the
     loop condition itself, so the host never waits between orders.
-    Returns what :func:`mega_plain` returns, for all C columns."""
+    Returns what :func:`mega_plain` returns, for all C columns.
+
+    ``ablate`` (one of ABLATE_VARIANTS on a card; results are wrong)
+    launches ``sos_mega_ablate`` (csrc/mega_ablate.cu), the same body with
+    those stages cut out, as mega_plain(ablate=...) cuts them.
+    ``ablate_build=True`` takes that library for ``ablate=""`` too: its
+    build of the solve itself, which must equal sos_mega to the bit."""
     from sos_rt_tpu_torch.ops import megastream as ms
 
     _, L, C = pack.shape
@@ -488,9 +541,10 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
     cb = min(cb, C)
     if C % cb:
         raise ValueError(f"batch {C} is not a multiple of the tile size {cb}")
+    mask = ablate_mask(ablate)
     if not pack.is_cuda:
         outs = [mega_plain(*ms.block_of(pack, cpar, tiles, i, cb), ops, tol=tol,
-                           max_orders=max_orders, full=full)
+                           max_orders=max_orders, full=full, ablate=ablate)
                 for i in range(C // cb)]
         # columns are axis 1 of the full planes and of stats, axis 0 of rows
         axis = lambda k: 1 if full or k == len(outs[0]) - 1 else 0
@@ -502,13 +556,27 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
         raise ValueError(f"the resident kernel takes Mp <= {MAX_RESIDENT_MP} and "
                          f"tiles of <= {MAX_COLS_PER_TILE} columns; got Mp={Mp}, "
                          f"cols_per_tile={cb}")
-    lib = cuda_build.library("megakernel")
+    if ablate_build is None:
+        ablate_build = mask != 0
+    if ablate_build:
+        if mask and mask not in {ablate_mask(v) for v in ABLATE_VARIANTS}:
+            raise ValueError(f"ablate={ablate!r} is not built; the variants are "
+                             f"{ABLATE_VARIANTS}")
+        if Mp > 256 or ops.mm == "bf16x5":
+            raise ValueError("the ablated kernel takes Mp <= 256 and mm 'bf16x3' "
+                             f"or 'highest'; got Mp={Mp}, mm={ops.mm!r}")
+        lib = cuda_build.library("mega_ablate")
+        blocks_fn = lambda *a: lib.sos_mega_ablate_blocks(mask, *a)
+        launch, name = (lambda *a: lib.sos_mega_ablate(mask, *a)), "sos_mega_ablate"
+    else:
+        lib = cuda_build.library("megakernel")
+        blocks_fn, launch, name = lib.sos_mega_blocks, lib.sos_mega, "sos_mega"
     dev, dtype = pack.device, ops.dtype
     # the occupancy query and the launch act on the current device
     with torch.cuda.device(dev):
-        blocks = lib.sos_mega_blocks(dt, mm, Mp, ops.slot)
+        blocks = blocks_fn(dt, mm, Mp, ops.slot)
         if blocks <= 0:
-            cuda_build.check(-blocks or 1, "sos_mega_blocks")
+            cuda_build.check(-blocks or 1, f"{name} blocks")
         nblocks = min(C // cb, blocks)
         work = torch.empty((nblocks, 4, L, cb, Mp), dtype=dtype, device=dev)
         counter = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -518,13 +586,13 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
         o = [t.data_ptr() for t in outs] + [0, 0]
         cols, t_hi, t_lo = ops.taps
         p = lambda t: t.data_ptr()
-        cuda_build.check(lib.sos_mega(
+        cuda_build.check(launch(
             dt, mm, int(ops.lamb), int(full), p(pack), p(cpar), p(tiles), p(ops.colc),
             p(ops.ws[0]), p(ops.ws[1]), p(ops.astk[0]), p(ops.astk[1]),
             p(cols), p(t_hi), p(t_lo), p(ops.pvt), p(ops.bct[0]), p(ops.bct[1]),
             p(work), p(counter), o[0], o[1], o[2], o[3], p(stats),
             L, C, cb, Mp, ops.nb_angles, ops.slot, nblocks, int(max_orders),
-            float(tol), stream), "sos_mega")
+            float(tol), stream), name)
     mega_call.launches += 1
     return (*outs, stats)
 

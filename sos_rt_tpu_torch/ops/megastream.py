@@ -31,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from sos_rt_tpu_torch.ops import cuda_build, fused_sweeps
+from sos_rt_tpu_torch.ops import cuda_build, fused_sweeps, micro
 from sos_rt_tpu_torch.ops.megakernel import (
     CP_CONST, CP_GRD, PK_ASTAR, PK_CDN, PK_CHOICE, PK_COEF_AER, PK_COEF_ATM,
     PK_CUP, PK_GS, PK_HDT_DN, PK_HDT_UP, PK_R1, PK_R2, RC_EMU_DN, RC_EMU_UP,
@@ -123,28 +123,36 @@ def passI_plain(pack, tiles, cpar, ops: StreamOps):
     return i1_block(s, eout, et)
 
 
-def passA_plain(pack, fdn, fup, ops: StreamOps):
-    """Jₙ source product + downward recurrence → (sdn, jnup)."""
+def passA_plain(pack, fdn, fup, ops: StreamOps, ab=frozenset()):
+    """Jₙ source product + downward recurrence → (sdn, jnup).  ``ab``: the
+    resident kernel's ablation flags (``megakernel.mega_plain``): 'nosrc'
+    takes jₙ = I + 1 instead of the product, 'noloops' drops the carry."""
     Mp = ops.mp
-    out = ops.dot3(*ops.ws, torch.cat([fdn, fup], dim=-1))   # (L, C, 4Mp)
-    ca = pack[PK_COEF_ATM][..., None]
-    cr = pack[PK_COEF_AER][..., None]
-    jnd = ca * out[..., :Mp] + cr * out[..., 2 * Mp:3 * Mp]
-    jnu = ca * out[..., Mp:2 * Mp] + cr * out[..., 3 * Mp:]
+    if "nosrc" in ab:
+        jnd, jnu = fdn + 1.0, fup + 1.0
+    else:
+        out = ops.dot3(*ops.ws, torch.cat([fdn, fup], dim=-1))   # (L, C, 4Mp)
+        ca = pack[PK_COEF_ATM][..., None]
+        cr = pack[PK_COEF_AER][..., None]
+        jnd = ca * out[..., :Mp] + cr * out[..., 2 * Mp:3 * Mp]
+        jnu = ca * out[..., Mp:2 * Mp] + cr * out[..., 3 * Mp:]
     att = torch.exp(2.0 * pack[PK_HDT_DN][..., None] * ops.colc[RC_EMU_DN])
     src = pack[PK_CDN][..., None] * jnd
     hup = pack[PK_HDT_UP][..., None]
     sdn = torch.empty_like(jnd)
     r = torch.zeros_like(jnd[0])
     for t in range(jnd.shape[0]):
-        r = att[t] * r + src[t]
+        r = src[t] if "noloops" in ab else att[t] * r + src[t]
         sdn[t] = r - hup[t] * jnd[t]
     return sdn, jnu
 
 
-def passB_plain(pack, sdn, jnup, cpar, ops: StreamOps):
+def passB_plain(pack, sdn, jnup, cpar, ops: StreamOps, ab=frozenset()):
     """Surface BC, band fix, upward recurrence, join corrections and
-    smoothing → (fdn, fup)."""
+    smoothing → (fdn, fup).  ``ab``: the resident kernel's ablation flags
+    (``megakernel.mega_plain``): 'nopoly' (no band fix), 'nobc' (the carry
+    starts from jₙ↑ of the deepest layer), 'noloops' (no carry), 'nofin'
+    (no corrections, no smoothing), 'nosmooth' (no smoothing)."""
     L, C, Mp = sdn.shape
     mr = ops.nb_angles
     rowf = torch.arange(Mp, device=sdn.device)
@@ -152,16 +160,22 @@ def passB_plain(pack, sdn, jnup, cpar, ops: StreamOps):
     corr = (rowf >= 0.5).to(sdn.dtype)
     lastrow = rowf > mr - 1.5
     colc = ops.colc
-    fv = band_fix_tile(-sdn * colc[RC_IVDN], pack[PK_CHOICE], lastrow,
-                       taps=ops.taps, pvt=ops.pvt, mm=ops.mm, nb_angles=mr)
-    # surface BC from the deepest layer's band-fixed I↓, summed over the
-    # angles in the order the kernel sums them
-    parts = split_parts(fv[L - 1], ops.mm)
-    bc = torch.zeros_like(fv[L - 1])
-    for k in range(Mp):
-        bc = add_terms(bc, ops.bct[0][k], ops.bct[1][k],
-                       [p[:, k:k + 1] for p in parts], ops.mm)
-    r = torch.where(row0, jnup[L - 1], cpar[CP_GRD][:, None] * bc)
+    if "nopoly" in ab:
+        fv = torch.where(lastrow, 0.0, -sdn * colc[RC_IVDN])
+    else:
+        fv = band_fix_tile(-sdn * colc[RC_IVDN], pack[PK_CHOICE], lastrow,
+                           taps=ops.taps, pvt=ops.pvt, mm=ops.mm, nb_angles=mr)
+    if "nobc" in ab:
+        r = jnup[L - 1]
+    else:
+        # surface BC from the deepest layer's band-fixed I↓, summed over
+        # the angles in the order the kernel sums them
+        parts = split_parts(fv[L - 1], ops.mm)
+        bc = torch.zeros_like(fv[L - 1])
+        for k in range(Mp):
+            bc = add_terms(bc, ops.bct[0][k], ops.bct[1][k],
+                           [p[:, k:k + 1] for p in parts], ops.mm)
+        r = torch.where(row0, jnup[L - 1], cpar[CP_GRD][:, None] * bc)
     aup = torch.exp(2.0 * pack[PK_HDT_UP][..., None] * colc[RC_EMU_UP])
     attu = torch.where(row0, 0.0, aup)
     jiv = colc[RC_IVUP] * jnup
@@ -172,15 +186,17 @@ def passB_plain(pack, sdn, jnup, cpar, ops: StreamOps):
     q1 = q2 = torch.zeros_like(r)
     fup = torch.empty_like(sdn)
     for t in range(L - 1, -1, -1):
-        r = attu[t] * r + src[t]
+        r = src[t] if "noloops" in ab else attu[t] * r + src[t]
         f = r - gsv[t]
-        q1 = q1 * attu[t]
-        q2 = q2 * attu[t]
-        f = f + corr * (q1 + q2)
-        sm = _smooth_up(f, mr, colc[RC_MUUP])
-        d = sm - f
-        q1 = torch.where(r1row[t], d, q1)
-        q2 = torch.where(r2row[t], d, q2)
+        sm = f
+        if "nofin" not in ab:
+            q1 = q1 * attu[t]
+            q2 = q2 * attu[t]
+            f = f + corr * (q1 + q2)
+            sm = f if "nosmooth" in ab else _smooth_up(f, mr, colc[RC_MUUP])
+            d = sm - f
+            q1 = torch.where(r1row[t], d, q1)
+            q2 = torch.where(r2row[t], d, q2)
         fup[t] = sm
     return fv, fup
 
@@ -273,7 +289,7 @@ def passB(pack, sdn, jnup, cpar, ops: StreamOps):
 passI.launches = passA.launches = passB.launches = 0
 KERNELS = (passI, passA, passB)              # the streamed loop's kernels
 # every kernel wrapper of the port
-ALL_KERNELS = KERNELS + (mega_call,) + fused_sweeps.KERNELS
+ALL_KERNELS = KERNELS + (mega_call,) + fused_sweeps.KERNELS + micro.KERNELS
 
 
 def reset_launches() -> None:

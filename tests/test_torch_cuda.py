@@ -22,7 +22,10 @@ thousand may differ by more than 1e-4.  Against the streamed kernels,
 whose device functions it shares, the resident kernel agrees to the bit.
 The fused engine's two sweep kernels (down_sweep, up_sweep_smooth) repeat
 their plain versions operation by operation and must equal them to the bit,
-in float32 and in float64.
+in float32 and in float64.  So do the micro kernels (csrc/micro.cu), rep by
+rep, but for their three products (1e-5 of scale); the resident kernel's
+ablated builds (csrc/mega_ablate.cu) equal mega_plain with the same flags to
+1e-12 in float64, and their build of the solve equals sos_mega to the bit.
 """
 import dataclasses
 
@@ -35,6 +38,7 @@ from sos_rt_tpu_torch.fused import FusedBatch, prepare_batch, solve_batch_mega
 from sos_rt_tpu_torch.ops import fused_sweeps as fs
 from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.ops import megastream as ms
+from sos_rt_tpu_torch.ops import micro
 from sos_rt_tpu_torch.parallel import broadcast_scene, solve_batch
 from sos_rt_tpu_torch.solver import PhaseTables
 
@@ -261,3 +265,69 @@ def test_sweep_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         fs.up_sweep_smooth(jn[:, :, m:], fb.pack, fb.cparams, fb.mu_up_row,
                            torch.zeros((fb.B, m + 1), dtype=jn.dtype, device=cuda))
+
+
+# ---- the tools' kernels: micro_ops, micro_pass and the ablated resident
+# kernel (csrc/micro.cu, csrc/mega_ablate.cu) ----
+
+@pytest.mark.parametrize("pat", micro.PATTERNS)
+def test_micro_ops_kernel_matches_plain(cuda, pat):
+    """Each rep against the plain version on the same input: to the bit but
+    for the products (1e-5 of scale: another summation order, or float32
+    accumulators against one rounding of a float64 sum)."""
+    xs, pk, a2 = micro.make_inputs(0, cuda)
+    first = micro.micro_ops_call(pat, 1, xs[0], pk, a2)
+    second = micro.micro_ops_call(pat, 2, xs[0], pk, a2)
+    torch.cuda.synchronize()
+    for got, x in ((first, xs[0]), (second, first)):
+        want = micro.micro_ops_plain(pat, 1, x, pk, a2)
+        if pat.startswith("matmul"):
+            assert _rel(got, want) <= 1e-5
+        else:
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("mode,g", micro.PASS_PAIRS,
+                         ids=[f"{m}-{g}" for m, g in micro.PASS_PAIRS])
+def test_micro_pass_kernel_matches_plain(cuda, mode, g):
+    x = micro.make_inputs(0, cuda)[0][1]
+    assert torch.equal(micro.micro_pass_call(mode, g, x), micro.micro_pass_plain(mode, g, x))
+
+
+def test_micro_wrappers_count_launches(cuda):
+    xs, pk, a2 = micro.make_inputs(0, cuda)
+    ms.reset_launches()
+    micro.micro_ops_call("fma", 3, xs[0], pk, a2)
+    micro.micro_pass_call("flat", 128, xs[0])
+    assert micro.micro_ops_call.launches == micro.micro_pass_call.launches == 1
+    with pytest.raises(ValueError):
+        micro.micro_ops_call("fma", 1, xs[0].double(), pk, a2)
+
+
+@pytest.mark.parametrize("ablate", mk.ABLATE_VARIANTS)
+def test_ablated_kernel_matches_plain(cuda, ablate):
+    """float64: the ablated kernel cuts the stages mega_plain cuts, to 1e-12."""
+    scenes, tables = _inputs(cuda, torch.float64)
+    opts = SolverOptions(dtype="float64", max_orders=6)
+    sb = prepare_batch(scenes, tables, GRID, opts, device=cuda)
+    kw = dict(tol=opts.tol, max_orders=opts.max_orders, full=False)
+    got = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, ablate=ablate, **kw)
+    want = mk.mega_plain(sb.pack, sb.cpar, sb.tiles, sb.ops, ablate=ablate, **kw)
+    assert bool((got[-1][mk.ST_N] == opts.max_orders).all())
+    assert torch.equal(got[-1][mk.ST_N], want[-1][mk.ST_N])
+    for k, p in zip(got[:-1], want[:-1]):
+        assert _rel(k, p) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ablate_build_of_the_solve_equals_sos_mega(cuda, dtype):
+    scenes, tables = _inputs(cuda, dtype)
+    opts = SolverOptions(dtype=str(dtype).split(".")[1])
+    sb = prepare_batch(scenes, tables, GRID, opts, device=cuda)
+    kw = dict(tol=opts.tol, max_orders=opts.max_orders, full=False)
+    a = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **kw)
+    b = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, ablate_build=True, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError):
+        mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, ablate="noconv,nobc,nofin", **kw)

@@ -166,4 +166,4 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors(order2):
     # a launch is counted only where a kernel is launched
     assert fs.down_sweep.launches == fs.up_sweep_smooth.launches == 0
     from sos_rt_tpu_torch.ops import megastream as ms
-    assert set(fs.KERNELS) <= set(ms.ALL_KERNELS) and len(ms.ALL_KERNELS) == 6
+    assert set(fs.KERNELS) <= set(ms.ALL_KERNELS) and len(ms.ALL_KERNELS) == 8
