@@ -18,15 +18,20 @@
 //
 // Bounds on the H100 and what the design does about them:
 // - passA and passI are products of a fixed (4Mp, K) operator with an
-//   (L*C, K) field, K = 2Mp or Mp: compute-bound (416 GFLOP per pass at the
-//   501x800 grid for one 128-column block).  quad_gemm is a tiled SIMT
-//   product in float32/float64 FMA whose epilogue does the species mixing
-//   (passA) or the whole I1 closed form (passI), so jn and the surface
-//   products never make a round trip through device memory.  The bf16x3 /
-//   bf16x5 modes read the host-split operator (hi, lo) and split x in the
-//   kernel by round-half-even bf16 rounding; a bf16 x bf16 product is exact
-//   in float32, so the sum equals the tensor-core passes up to summation
-//   order.  Tensor cores (wgmma) are later work.
+//   (L*C, K) field, K = 2Mp or Mp: compute-bound (416 GFLOP per bf16 pass
+//   at the 501x800 grid for one 128-column block, three passes in bf16x3).
+//   The epilogue does the species mixing (passA) or the whole I1 closed form
+//   (passI), so jn and the surface products never make a round trip through
+//   device memory.  The mainloop is picked at compile time by (dtype, mode):
+//   * float32 bf16x3 / bf16x5: tc::quad_mma (quad_mma.cuh), on the tensor
+//     cores (wgmma bf16, float32 accumulators, a 3-stage shared-memory ring
+//     filled by cp.async): the host-split operator (hi, lo) as bf16 copies,
+//     x split in registers round half to even; a bf16 x bf16 product is
+//     exact in float32, so the result differs from the SIMT product only in
+//     the order of the float32 sums.
+//   * float64 and float32 'highest' (no bf16 split exists): quad_gemm, the
+//     tiled SIMT FMA product of sos_tiles.cuh, which the resident kernel
+//     calls too.
 // - The downward recurrence (passA scan) and passB are memory-bound: each
 //   streams whole field planes once.  One thread per (column, angle) walks
 //   the layers with the carry in a register (passA scan); passB runs one
@@ -36,6 +41,7 @@
 //   taps of the selected variant, and the Lambertian BC is a dot over
 //   angles.
 // Every entry point returns cudaGetLastError(); the caller raises on non-0.
+#include "quad_mma.cuh"
 #include "sos_tiles.cuh"
 
 namespace {
@@ -73,25 +79,42 @@ __global__ void pass_b(PassBArgs<T> a) {
 
 dim3 gemm_grid(int R, int Mp) { return dim3((Mp + BN - 1) / BN, (R + BM - 1) / BM); }
 
+// the quad product in the mainloop (dtype, mode) takes: the tensor cores for
+// float32 bf16x3 / bf16x5 (w_tc: the (2, 4Mp, kp) bf16 operator copy), the
+// SIMT product otherwise (w_hi, w_lo)
+template <typename T, int MODE, class Loader, class Epi>
+int quad_product(const Loader& ld, const Epi& epi, const void* w_hi, const void* w_lo,
+                 const void* w_tc, int kp, int R, int Mp, int K, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value && MODE != MM_HIGHEST) {
+    return tc::launch<MODE>(ld, epi, w_tc, R, Mp, K, kp, st);
+  } else {
+    if ((R + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+    quad_gemm<T, MODE><<<gemm_grid(R, Mp), dim3(TX, TY), 0, st>>>(
+        ld, epi, (const T*)w_hi, (const T*)w_lo, R, Mp, K);
+    return (int)cudaGetLastError();
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 float32, 1 float64; mode: 0 highest, 1 bf16x3, 2 bf16x5.
+// ws_tc / astk_tc: the bf16 operator copy (2, 4Mp, kp) of the tensor-core
+// mainloop (float32 bf16x3 / bf16x5; unread otherwise, may be null).
 int sos_passA(int dtype, int mode, const void* pack, const void* fdn,
               const void* fup, const void* colc, const void* ws_hi,
-              const void* ws_lo, void* sdn, void* jnup, int L, int C, int Mp,
-              void* stream) {
+              const void* ws_lo, const void* ws_tc, int kp, void* sdn, void* jnup,
+              int L, int C, int Mp, void* stream) {
   const int R = L * C;
-  if ((R + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return dispatch(dtype, mode, [&](auto tv, auto mv) {
     using T = decltype(tv);
     constexpr int MODE = decltype(mv)::value;
     LoadFields<T> ld{(const T*)fdn, (const T*)fup, Mp};
     EpiSource<T> epi{(const T*)pack, PackMap{L, C, C, 0}, (T*)sdn, (T*)jnup, Mp};
-    quad_gemm<T, MODE><<<gemm_grid(R, Mp), dim3(TX, TY), 0, st>>>(
-        ld, epi, (const T*)ws_hi, (const T*)ws_lo, R, Mp, 2 * Mp);
+    const int err = quad_product<T, MODE>(ld, epi, ws_hi, ws_lo, ws_tc, kp, R, Mp, 2 * Mp, st);
+    if (err != 0) return err;
     const int n = C * Mp, nt = 256;
     down_scan<T><<<(n + nt - 1) / nt, nt, 0, st>>>((const T*)pack, (const T*)colc,
                                                    (T*)sdn, L, C, Mp);
@@ -101,10 +124,9 @@ int sos_passA(int dtype, int mode, const void* pack, const void* fdn,
 
 int sos_passI(int dtype, int mode, int lamb, const void* pack,
               const void* tiles, const void* cpar, const void* colc,
-              const void* astk_hi, const void* astk_lo, void* fdn, void* fup,
-              int L, int C, int Mp, int mr, void* stream) {
+              const void* astk_hi, const void* astk_lo, const void* astk_tc, int kp,
+              void* fdn, void* fup, int L, int C, int Mp, int mr, void* stream) {
   const int R = L * C;
-  if ((R + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return dispatch(dtype, mode, [&](auto tv, auto mv) {
     using T = decltype(tv);
@@ -114,9 +136,8 @@ int sos_passI(int dtype, int mode, int lamb, const void* pack,
     EpiFirstOrder<T> epi{(const T*)pack, pm, (const T*)tiles, (const T*)colc,
                          (const T*)cpar, (T*)fdn, (T*)fup, Mp, mr, lamb != 0};
     // a specular surface has no surface-integral product: K = 0
-    quad_gemm<T, MODE><<<gemm_grid(R, Mp), dim3(TX, TY), 0, st>>>(
-        ld, epi, (const T*)astk_hi, (const T*)astk_lo, R, Mp, lamb ? Mp : 0);
-    return (int)cudaGetLastError();
+    return quad_product<T, MODE>(ld, epi, astk_hi, astk_lo, astk_tc, kp, R, Mp,
+                                 lamb ? Mp : 0, st);
   });
 }
 
@@ -142,5 +163,8 @@ int sos_passB(int dtype, int mode, const void* pack, const void* sdn,
     return (int)cudaGetLastError();
   });
 }
+
+// dynamic shared memory (bytes) of the tensor-core mainloop's CTA
+int sos_tc_smem() { return tc::smem_bytes(); }
 
 }  // extern "C"

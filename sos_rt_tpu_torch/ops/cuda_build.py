@@ -28,9 +28,10 @@ _P, _I, _D, _Q = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlo
 # argument types of every C entry point, by library
 SIGNATURES = {
     "megastream": {
-        "sos_passA": [_I, _I] + [_P] * 8 + [_I] * 3 + [_P],
-        "sos_passI": [_I, _I, _I] + [_P] * 8 + [_I] * 4 + [_P],
+        "sos_passA": [_I, _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 3 + [_P],
+        "sos_passI": [_I, _I, _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
         "sos_passB": [_I, _I] + [_P] * 13 + [_I] * 5 + [_P],
+        "sos_tc_smem": [],
     },
     "megakernel": {
         "sos_mega_blocks": [_I] * 4,

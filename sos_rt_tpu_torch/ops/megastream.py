@@ -19,8 +19,12 @@ Each pass is a wrapper: on a CUDA tensor it launches the hand-written
 kernel of ``csrc/megastream.cu`` (or raises) and adds one to its
 ``launches`` count; on a CPU tensor it runs the plain PyTorch version
 beside it (``passI_plain``, ``passA_plain``, ``passB_plain``), which is
-also what the kernels are held against on the card.  The same three
-bodies, as device functions, make up the resident whole-loop kernel
+also what the kernels are held against on the card.  In float32 'bf16x3'
+and 'bf16x5' the products of passI and passA run on the tensor cores
+(``csrc/quad_mma.cuh``), from bf16 copies of the split operators that
+:meth:`StreamOps.build` makes on the card; those launches also count in
+``tc_launches``.  The three bodies, as device functions (the SIMT product
+in every mode), make up the resident whole-loop kernel
 (``ops/megakernel.py::mega_call``), which runs the order loop on the
 device instead of in :func:`solve_block`.
 """
@@ -43,6 +47,30 @@ from sos_rt_tpu_torch.ops.precision import split_bf16
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _MM_CODE = {"highest": 0, "bf16x3": 1, "bf16x5": 2}
+# the k-tile of the tensor-core mainloop (csrc/quad_mma.cuh, BK): its bf16
+# operator copies pad K with zeros to a multiple of it
+TC_K_TILE = 32
+
+
+def takes_tensor_cores(dtype, mm: str) -> bool:
+    """Whether passI / passA run their product on the tensor cores: float32
+    with a bf16 split ('bf16x3', 'bf16x5').  float64 and 'highest' have no
+    bf16 split and stay on the SIMT product."""
+    return dtype == torch.float32 and mm != "highest"
+
+
+def tc_operator(hi, lo):
+    """The bf16 copy of a split operator (hi, lo), each (N, K) and exact in
+    bf16, that the tensor-core mainloop reads: (2, N, Kp) with [0] = hi and
+    [1] = lo, rows k-contiguous as the operator's own (the B operand of a
+    row-major A), K zero-padded to Kp, the next multiple of TC_K_TILE.  The
+    conversion is lossless."""
+    n, k = hi.shape
+    kp = -(-k // TC_K_TILE) * TC_K_TILE
+    out = torch.zeros((2, n, kp), dtype=torch.bfloat16, device=hi.device)
+    out[0, :, :k] = hi
+    out[1, :, :k] = lo
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +78,10 @@ class StreamOps:
     """Per-solve constants of the three passes, as contiguous ``dtype``
     tensors: the stacked operators as (hi, lo) pairs (hi is the operator
     itself and lo a (1, 1) zero in mode 'highest'), the band stencil as
-    its ≤ 6 taps per row, and the BC matrix transposed."""
+    its ≤ 6 taps per row, and the BC matrix transposed.  On the card, in
+    the modes that take the tensor cores, also the operators' bf16 copies
+    (:func:`tc_operator`); None elsewhere (the plain versions never read
+    them)."""
 
     mm: str
     nb_angles: int             # real angle count (rows ≥ it are pads)
@@ -61,6 +92,8 @@ class StreamOps:
     taps: tuple                # (cols int32, hi, lo), each (4·SLOT, 6)
     pvt: torch.Tensor          # (4, Mp) placed-row validity per band choice
     bct: tuple                 # BC matrix transposed, (hi, lo) each (Mp, Mp)
+    ws_tc: torch.Tensor | None = None     # tc_operator(*ws), (2, 4Mp, Kp)
+    astk_tc: torch.Tensor | None = None   # tc_operator(*astk) (Lambertian)
 
     @property
     def mp(self) -> int:
@@ -92,10 +125,15 @@ class StreamOps:
             bc_lo = torch.zeros_like(bc_hi)
         else:
             bc_hi, bc_lo = (p.to(dtype=dtype, device=device) for p in split_bf16(bct))
+        ws = pair(ws)
+        astk = pair(astk) if astk is not None else None
+        tc = takes_tensor_cores(dtype, mm) and colc.is_cuda
         return cls(mm=mm, nb_angles=m, lamb=surface == "lambertian", colc=colc,
-                   ws=pair(ws), astk=pair(astk) if astk is not None else (zero, zero),
+                   ws=ws, astk=astk if astk is not None else (zero, zero),
                    taps=stencil_taps(stencils, mm, dtype, device),
-                   pvt=as_t(band_validity(stencils, m)), bct=(bc_hi, bc_lo))
+                   pvt=as_t(band_validity(stencils, m)), bct=(bc_hi, bc_lo),
+                   ws_tc=tc_operator(*ws) if tc else None,
+                   astk_tc=tc_operator(*astk) if tc and astk is not None else None)
 
     def dot3(self, hi, lo, x):
         return _dot3(hi, lo, x, mm=self.mm, dtype=self.dtype)
@@ -224,43 +262,57 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def _tc_args(ops: StreamOps, w):
+    """(takes the tensor cores, pointer, row length) of the bf16 operator
+    copy ``w`` (None where there is none: a specular passI, whose product is
+    empty, or a mode on the SIMT product)."""
+    tc = takes_tensor_cores(ops.dtype, ops.mm)
+    return tc, (w.data_ptr() if w is not None else None), (w.shape[-1] if w is not None else 0)
+
+
 def passI(pack, tiles, cpar, ops: StreamOps):
     """First order I₁ → (fdn, fup) (L, C, Mp).  Replaces
     sos_rt_tpu/ops/megastream.py::_passI_kernel.  Bound by the operations
-    of the (4Mp, Mp) surface product; the kernel is a tiled FMA product
-    whose epilogue evaluates the closed form (csrc/megastream.cu)."""
+    of the (4Mp, Mp) surface product; the kernel is a tiled product (on the
+    tensor cores in float32 'bf16x3' / 'bf16x5', FMAs otherwise) whose
+    epilogue evaluates the closed form (csrc/megastream.cu)."""
     if not pack.is_cuda:
         return passI_plain(pack, tiles, cpar, ops)
     dt, mm, stream = _kernel_codes(ops, pack, tiles, cpar)
     _, L, C = pack.shape
     fdn = torch.empty((L, C, ops.mp), dtype=ops.dtype, device=pack.device)
     fup = torch.empty_like(fdn)
+    tc, w_tc, kp = _tc_args(ops, ops.astk_tc)
     lib = cuda_build.library("megastream")
     cuda_build.check(lib.sos_passI(
         dt, mm, int(ops.lamb), _ptr(pack), _ptr(tiles), _ptr(cpar),
-        _ptr(ops.colc), _ptr(ops.astk[0]), _ptr(ops.astk[1]),
+        _ptr(ops.colc), _ptr(ops.astk[0]), _ptr(ops.astk[1]), w_tc, kp,
         _ptr(fdn), _ptr(fup), L, C, ops.mp, ops.nb_angles, stream), "sos_passI")
     passI.launches += 1
+    passI.tc_launches += tc
     return fdn, fup
 
 
 def passA(pack, fdn, fup, ops: StreamOps):
     """Jₙ source product + downward recurrence → (sdn, jnup).  Replaces
     sos_rt_tpu/ops/megastream.py::_passA_kernel.  Bound by the operations
-    of the (4Mp, 2Mp) source product; a tiled FMA product mixes the species
-    in its epilogue, then one thread per (column, angle) walks the layers."""
+    of the (4Mp, 2Mp) source product; a tiled product (on the tensor cores
+    in float32 'bf16x3' / 'bf16x5', FMAs otherwise) mixes the species in its
+    epilogue, then one thread per (column, angle) walks the layers."""
     if not fdn.is_cuda:
         return passA_plain(pack, fdn, fup, ops)
     dt, mm, stream = _kernel_codes(ops, pack, fdn, fup)
     L, C, Mp = fdn.shape
     sdn = torch.empty_like(fdn)
     jnup = torch.empty_like(fdn)
+    tc, w_tc, kp = _tc_args(ops, ops.ws_tc)
     lib = cuda_build.library("megastream")
     cuda_build.check(lib.sos_passA(
         dt, mm, _ptr(pack), _ptr(fdn), _ptr(fup), _ptr(ops.colc),
-        _ptr(ops.ws[0]), _ptr(ops.ws[1]), _ptr(sdn), _ptr(jnup),
+        _ptr(ops.ws[0]), _ptr(ops.ws[1]), w_tc, kp, _ptr(sdn), _ptr(jnup),
         L, C, Mp, stream), "sos_passA")
     passA.launches += 1
+    passA.tc_launches += tc
     return sdn, jnup
 
 
@@ -287,7 +339,10 @@ def passB(pack, sdn, jnup, cpar, ops: StreamOps):
 
 
 passI.launches = passA.launches = passB.launches = 0
+# launches whose product ran on the tensor cores (csrc/quad_mma.cuh)
+passI.tc_launches = passA.tc_launches = 0
 KERNELS = (passI, passA, passB)              # the streamed loop's kernels
+TC_KERNELS = (passI, passA)                  # those with a tensor-core mainloop
 # every kernel wrapper of the port
 ALL_KERNELS = KERNELS + (mega_call,) + fused_sweeps.KERNELS + micro.KERNELS
 
@@ -295,6 +350,8 @@ ALL_KERNELS = KERNELS + (mega_call,) + fused_sweeps.KERNELS + micro.KERNELS
 def reset_launches() -> None:
     for k in ALL_KERNELS:
         k.launches = 0
+    for k in TC_KERNELS:
+        k.tc_launches = 0
 
 
 # --------------------------------------------------------------------------
