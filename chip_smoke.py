@@ -10,7 +10,9 @@ Phases, one JSON line each on stdout:
                  registers, spills and shared memory of each kernel (the
                  four tensor-core kernels of passA/passI by name, with
                  their dynamic shared memory), and sos_mega's registers and
-                 spills held equal to MEGA_PTXAS_REF.
+                 spills per build: the SIMT builds held equal to
+                 MEGA_PTXAS_SIMT, the two tensor-core builds to the
+                 registers of MEGA_PTXAS_TC and at most its spills.
 2. ``kernels``   each kernel (passI, passA, passB) against its plain
                  PyTorch version on the card at GridSpec(56, 64), B=8:
                  float64 'highest' within 1e-12 of scale, float32
@@ -20,7 +22,8 @@ Phases, one JSON line each on stdout:
                  ``tc_launches`` counts); the resident whole-loop kernel
                  (mega_call) against mega_plain on the same batch: equal
                  order counts, summary rows within 1e-12 (float64) and 1e-4
-                 (float32 'bf16x3', 'bf16x5') of scale; the fused engine's
+                 (float32 'bf16x3', 'bf16x5', its products on the tensor
+                 cores: mega_call.tc_launches) of scale; the fused engine's
                  two sweep kernels (down_sweep, up_sweep_smooth) against
                  their plain versions on the J_n of a real second order,
                  float64 within 1e-12 and float32 within 1e-6 of scale
@@ -44,8 +47,9 @@ Phases, one JSON line each on stdout:
 5. ``fwc_sweep`` the 64×128 FWC sweep preset at B=4096, float32,
                  sort='predict', through solve_batch (which takes the
                  resident kernel at this grid); the launch counts of
-                 this run; 8 of its columns against the same solve in
-                 float64 on the card (as in ``canonical``); each streamed
+                 this run (every mega_call launch on the tensor cores); 8
+                 of its columns against the same solve in float64 on the
+                 card (as in ``canonical``); each streamed
                  kernel against its plain version at the shapes
                  solve_batch_mega(stream=True) gives them on this batch, the
                  sweep's first block (1024 columns) and a 1024-column block
@@ -56,20 +60,25 @@ Phases, one JSON line each on stdout:
 
 6. ``resident``  the same 4096-column batch through
                  solve_batch_mega(stream=False) and (stream=True), in turns:
-                 order counts and summary rows within MEGA_BATCH_LIMITS (the
-                 streamed product runs on the tensor cores, the resident one
-                 on SIMT FMAs), wall time and launch counts of both; 8
-                 columns in float64, both on the SIMT product: equal order
-                 counts, within 1e-12; the coarse 8×16 predictor solve both
+                 order counts and summary rows within MEGA_BATCH_LIMITS (both
+                 products on the tensor cores, in two mainloops), wall time
+                 and launch counts of both, every float32 mega_call launch
+                 on the tensor cores; 8 columns in float64, both on the SIMT
+                 product (no tensor-core launch): equal order counts, within
+                 1e-12; the coarse 8×16 predictor solve both
                  ways (it runs resident; MEGA_BATCH_LIMITS) and mega_call
                  against mega_plain there;
-                 mega_call timed alone on the sorted batch beside mega_plain
-                 and its bound.
+                 mega_call timed alone on the sorted batch beside mega_plain,
+                 its bound and its product-only yardstick (library_ms: one
+                 FP32 torch.matmul of an order's (4096·128 × 128)·(128 ×
+                 256) source product times the orders the batch needs, and
+                 one of I1's (4096·128 × 64)·(64 × 256) product).
 7. ``sweep_cli`` the production entry point: ``python -m sos_rt_tpu_torch
                  sweep --preset fwc_sweep --batch 16384 --chunk 4096`` with
                  the default 64-value µ0 pool (per-column P0 tables), through
-                 cli.main; the shards loaded back: shapes, all finite, all
-                 converged, 8 columns against the float64 solve on the card;
+                 cli.main (every mega_call launch on the tensor cores); the
+                 shards loaded back: shapes, all finite, all converged, 8
+                 columns against the float64 solve on the card;
                  a second call with --resume that solves no shard.
 
 8. ``fused_f64`` solve_batch(engine='fused') in float64 on the card against
@@ -180,20 +189,33 @@ SWEEP_OPS = {"down_sweep": 8, "up_sweep_smooth": 30}
 # Two whole float32 loops with other product arithmetic over thousands of
 # columns (see mega_vs_plain): about three times what mega_call against
 # mega_plain shows on the 4096-column sweep batch on an H100 (2.4e-4, 1,
-# 8.6e-4, 2.0e-2).  The same limits hold the resident execution against the
-# streamed one in float32: the streamed product runs on the tensor cores
-# (csrc/quad_mma.cuh), the resident one on SIMT FMAs (sos_tiles.cuh), so their
-# sums round differently and a last bit can move a smoothing endpoint or a
-# ratio across the 100 ppm line.  In float64 both run the same SIMT product
-# and agree to rtol 1e-12 with equal order counts.
+# 8.6e-4, 2.0e-2 with the SIMT product; 0, 0, 6.3e-4, 2.0e-2 with the
+# tensor-core one).  The same limits hold the resident execution against the
+# streamed one in float32: both run their products on the tensor cores, in
+# two mainloops (wgmma in csrc/quad_mma.cuh, mma.sync in csrc/mega_mma.cuh,
+# which adds each k16 block's sum to the running one apart), so their sums
+# round differently and a last bit can move a smoothing endpoint or a ratio
+# across the 100 ppm line.  In float64 both run the same SIMT product and
+# agree to rtol 1e-12 with equal order counts.
 MEGA_BATCH_LIMITS = {"n_differs_frac": 1e-3, "n_differs_max": 1.0,
                      "rows_off_frac": 3e-3, "rows_max_rel": 5e-2}
-# sos_mega's (registers, spill store bytes) per kernel as ptxas reports them
-# for csrc/megakernel.cu built before the tensor-core mainloop existed (CUDA
-# 12.8, sm_90a): the resident kernel does not include that mainloop and must
-# keep them
-MEGA_PTXAS_REF = [(128, 440), (128, 440), (128, 164), (128, 164), (128, 144),
-                  (128, 144), (128, 116), (128, 116)]
+# sos_mega's (registers, spill store bytes) per build (dtype, mm, threads)
+# as ptxas reports them for csrc/megakernel.cu (CUDA 12.8, sm_90a).  The
+# builds on the SIMT product (float64, 'highest', the 512-thread block of
+# Mp > 256) as they were before the resident kernel had a tensor-core
+# product; they must keep them exactly:
+MEGA_PTXAS_SIMT = {("float64", "highest", 256): (128, 440),
+                   ("float64", "highest", 512): (128, 440),
+                   ("float32", "highest", 256): (128, 116),
+                   ("float32", "highest", 512): (128, 116),
+                   ("float32", "bf16x3", 512): (128, 144),
+                   ("float32", "bf16x5", 512): (128, 164)}
+# The two builds whose products run on the tensor cores (csrc/mega_mma.cuh)
+# as their first build recorded them; their SIMT predecessors spilled 144
+# (bf16x3) and 164 (bf16x5) bytes.  They must keep the registers and spill
+# no more:
+MEGA_PTXAS_TC = {("float32", "bf16x3", 256): (128, 72),
+                 ("float32", "bf16x5", 256): (128, 96)}
 SPLIT_PASSES = {"bf16x3": 3, "bf16x5": 5, "highest": 1}
 # kernel against plain at a main-path block, float32 bf16x3, relative to
 # each output's largest magnitude: the kernel sums the 3 * 2Mp split
@@ -281,13 +303,23 @@ def block_inputs(scenes, tables, grid, opts, device, cols_per_block=None):
 
 
 def launch_counts() -> dict:
-    """Launches of every kernel wrapper, and of passI / passA those whose
-    product ran on the tensor cores (``passI_tc``, ``passA_tc``)."""
+    """Launches of every kernel wrapper, and of passI / passA / mega_call
+    those whose products ran on the tensor cores (``passI_tc``,
+    ``passA_tc``, ``mega_call_tc``)."""
     from sos_rt_tpu_torch.ops import megastream as ms
 
     counts = {k.__name__: k.launches for k in ms.ALL_KERNELS}
     counts.update({f"{k.__name__}_tc": k.tc_launches for k in ms.TC_KERNELS})
+    counts["mega_call_tc"] = ms.mega_call.tc_launches
     return counts
+
+
+def mega_tc_ok(launches: dict, what: str):
+    """Fail unless mega_call ran and every launch took the tensor cores
+    (float32 'bf16x3' / 'bf16x5' at Mp <= 256)."""
+    if launches["mega_call"] == 0 or launches["mega_call_tc"] != launches["mega_call"]:
+        fail(f"{what}: mega_call launched {launches['mega_call']} times, "
+             f"{launches['mega_call_tc']} on the tensor cores")
 
 
 def tc_route_ok(launches: dict, tensor_cores: bool, what: str):
@@ -505,6 +537,15 @@ def ptxas_entries(log_path: str) -> list:
     return out
 
 
+def mega_build(mangled: str) -> tuple:
+    """(dtype, mm, threads) of mega_kernel<T, MODE, NT, 0> by its name."""
+    import re
+
+    t, mode, nt = re.search(r"mega_kernelI([fd])Li(\d)ELi(\d+)ELi0E", mangled).groups()
+    return ({"f": "float32", "d": "float64"}[t],
+            {"0": "highest", "1": "bf16x3", "2": "bf16x5"}[mode], int(nt))
+
+
 def tc_kernel_label(mangled: str) -> str:
     """'passA bf16x3' for tc::quad_mma<1, LoadFields<float>, ...>, etc."""
     import re
@@ -522,7 +563,7 @@ def phase_card():
     built = cuda_build.build_all()
     build_s = time.perf_counter() - t0
     # the tensor-core mainloop's kernels; sos_mega's registers and spills
-    # against MEGA_PTXAS_REF (the resident kernel does not include quad_mma.cuh)
+    # against MEGA_PTXAS_SIMT and MEGA_PTXAS_TC
     tc_smem = cuda_build.library("megastream").sos_tc_smem()
     tc_kernels = [{"kernel": tc_kernel_label(name), "registers": regs,
                    "spill_store_bytes": spill, "static_smem_bytes": smem,
@@ -531,30 +572,38 @@ def phase_card():
                       cuda_build._lib_path("megastream") + ".log") if "quad_mma" in name]
     if len(tc_kernels) != 4:
         fail(f"megastream.cu built {len(tc_kernels)} tensor-core kernels, not 4")
-    mega = sorted((regs, spill) for _, regs, spill, _ in ptxas_entries(
-        cuda_build._lib_path("megakernel") + ".log"))
-    if mega != sorted(MEGA_PTXAS_REF):
-        fail(f"sos_mega's registers and spills changed: {mega} (was {MEGA_PTXAS_REF})")
+    mega = {mega_build(name): (regs, spill) for name, regs, spill, _ in ptxas_entries(
+        cuda_build._lib_path("megakernel") + ".log")}
+    if set(mega) != set(MEGA_PTXAS_SIMT) | set(MEGA_PTXAS_TC):
+        fail(f"megakernel.cu built {sorted(mega)}")
+    changed = {k: mega[k] for k, ref in MEGA_PTXAS_SIMT.items() if mega[k] != ref}
+    changed.update({k: mega[k] for k, (regs, spill) in MEGA_PTXAS_TC.items()
+                    if mega[k][0] != regs or mega[k][1] > spill})
+    if changed:
+        fail(f"sos_mega's registers or spills moved: {changed} "
+             f"(SIMT {MEGA_PTXAS_SIMT}, tensor cores {MEGA_PTXAS_TC})")
     ptxas = {}
     for name in cuda_build.SOURCES:
         log = cuda_build._lib_path(name) + ".log"
         with open(log) if os.path.exists(log) else open(os.devnull) as fh:
             ptxas[name] = [ln.strip() for ln in fh
                            if "registers" in ln or "spill" in ln]
-    # the ablated builds: one summary line for their 42 kernels
-    regs = [int(ln.split("Used ")[1].split()[0]) for ln in ptxas["mega_ablate"]
-            if "Used " in ln]
-    spills = [int(ln.split(" bytes spill stores")[0].split()[-1])
-              for ln in ptxas["mega_ablate"] if "bytes spill stores" in ln]
+    # the ablated builds: one summary line for their 42 kernels, the 14 of
+    # float32 'bf16x3' (on the tensor cores) apart
     span = lambda v: [min(v, default=None), max(v, default=None)]
-    ptxas["mega_ablate"] = {"kernels": len(regs), "registers": span(regs),
-                            "spill_store_bytes": span(spills)}
+    abl = ptxas_entries(cuda_build._lib_path("mega_ablate") + ".log")
+    ptxas["mega_ablate"] = {
+        key: {"kernels": len(e), "registers": span([r for _, r, _, _ in e]),
+              "spill_store_bytes": span([sp for _, _, sp, _ in e])}
+        for key, e in (("tensor_cores", [x for x in abl if "kernelIfLi1E" in x[0]]),
+                       ("simt", [x for x in abl if "kernelIfLi1E" not in x[0]]))}
     emit({"phase": "card", "nvidia_smi": nvidia_smi(),
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": round(build_s, 3),
           "compiled": sorted(built), "tensor_core_kernels": tc_kernels,
-          "sos_mega_ptxas_unchanged": True, "ptxas": ptxas})
+          "sos_mega_ptxas": {f"{d} {m} {nt}": v for (d, m, nt), v in sorted(mega.items())},
+          "ptxas": ptxas})
 
 
 def phase_kernels(device):
@@ -597,8 +646,11 @@ def phase_kernels(device):
             opts = SolverOptions(surface=surface, dtype=dtype, mm=mm)
             sb = prepare_batch(scenes, test_tables(grid, device, getattr(torch, dtype)),
                                grid, opts, device=device)
+            ms.reset_launches()
             rel, _, _ = mega_vs_plain(sb.pack, sb.cpar, sb.tiles, sb.ops, opts, tol,
                                       f"{dtype} {mm} {surface}")
+            if launch_counts()["mega_call_tc"] != (dtype == "float32"):
+                fail(f"mega_call {dtype} {mm} {surface}: launches {launch_counts()}")
             mega.append({"dtype": dtype, "mm": mm, "surface": surface, "tol": tol,
                          "rel_err": rel})
     from sos_rt_tpu_torch.fused import FusedBatch
@@ -874,6 +926,7 @@ def phase_fwc_sweep(device):
         runs.append((time.perf_counter() - t0, sol))
     launches = launch_counts()
     check_path_launches(launches, preset.grid, torch.float32, "fwc_sweep")
+    mega_tc_ok(launches, "fwc_sweep")
     wall, sol = runs[-1]
     if not (bool(torch.isfinite(sol.i_toa).all())
             and bool(torch.isfinite(sol.i_surface).all())):
@@ -950,6 +1003,28 @@ def mega_bound_ms(n_orders, L: int, Mp: int, ops, itemsize: int):
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
 
 
+def mega_library_ms(n_orders, L: int, Mp: int, ops):
+    """mega_call's product-only yardstick (ms): one FP32 torch.matmul of the
+    batch's source product, (C·L × 2Mp)·(2Mp × 4Mp), times the source
+    products the batch needs per column (the mean of n − 1), plus one of
+    I1's surface product (C·L × Mp)·(Mp × 4Mp) for a Lambertian surface.
+    The epilogues, recurrences and pass B are not in it."""
+    import torch
+
+    from sos_rt_tpu_torch.config import full_precision_matmul
+
+    full_precision_matmul()                  # FP32, not TF32
+    C, dev = int(n_orders.numel()), ops.colc.device
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    mat = lambda r, k: torch.rand((r, k), generator=g, device=dev)
+    x, w = mat(C * L, 2 * Mp), mat(4 * Mp, 2 * Mp)
+    total = timed(lambda: torch.matmul(x, w.T), 3) * float((n_orders - 1).mean())
+    if ops.lamb:
+        x1, w1 = mat(C * L, Mp), mat(4 * Mp, Mp)
+        total += timed(lambda: torch.matmul(x1, w1.T), 3)
+    return total
+
+
 def fwc_batch(device, B: int = 4096):
     """The fwc_sweep phase's batch: the fwc_sweep preset, one shared µ0
     table, (ρ, τ*_aer, ω_aer) drawn per column from SEED."""
@@ -1013,11 +1088,13 @@ def phase_resident(device):
     if not (res_l["mega_call"] >= 1 and res_own["mega_call"] == 1
             and res_own["passI"] == res_own["passA"] == res_own["passB"] == 0):
         fail(f"resident call launched {res_l}, without predictor {res_own}")
+    mega_tc_ok(res_l, "resident call")
+    mega_tc_ok(res_own, "resident call without predictor")
     if not (stm_own["mega_call"] == 0 and stm_own["passA"] > 0 and stm_own["passB"] > 0
             and stm_l["passA"] > 0):
         fail(f"streamed call launched {stm_l}, without predictor {stm_own}")
-    # float32: the streamed product runs on the tensor cores, the resident
-    # one on SIMT FMAs (MEGA_BATCH_LIMITS)
+    # float32: both products on the tensor cores, in two mainloops
+    # (MEGA_BATCH_LIMITS)
     rows = lambda s: torch.cat([s.i_toa, s.i_surface], 1)
     summary = lambda s: (s.i_toa, s.i_surface)
     vs_streamed, _ = loops_within_limits(res.n_orders, stm.n_orders, summary(res),
@@ -1028,8 +1105,11 @@ def phase_resident(device):
     # 8 columns in float64, both executions
     sub = torch.arange(8, device=device) * (B // 8)
     o64 = dataclasses.replace(preset.opts, dtype="float64")
-    r64 = solve_batch_mega(take_columns(scenes, sub), tables[torch.float64], preset.grid,
-                           o64, outputs="summary", stream=False, device=device)
+    _, r64, r64_l = timed_solve(lambda: solve_batch_mega(
+        take_columns(scenes, sub), tables[torch.float64], preset.grid, o64,
+        outputs="summary", stream=False, device=device))
+    if not (r64_l["mega_call"] == 1 and r64_l["mega_call_tc"] == 0):
+        fail(f"the resident float64 solve did not run the SIMT product: {r64_l}")
     _, s64, s64_l = timed_solve(lambda: solve_batch_mega(
         take_columns(scenes, sub), tables[torch.float64], preset.grid, o64,
         outputs="summary", stream=True, device=device))
@@ -1081,15 +1161,18 @@ def phase_resident(device):
     n_orders = call()[-1][mk.ST_N]
     L, Mp = preset.grid.nb_layers, sb.ops.mp
     bms, by = mega_bound_ms(n_orders, L, Mp, sb.ops, sb.pack.element_size())
+    lib_ms = mega_library_ms(n_orders, L, Mp, sb.ops)
     entry = {"name": "mega_call", "route": "cuda", "source": MEGA_SOURCE,
              "replaces": REPLACES["mega_call"], "launches": 0,
              "max_abs_err": max(absd, coarse_abs), "max_rel_err": rel,
              "ms": timed(call, 3),
              "plain_ms": timed(lambda: mk.mega_plain(sb.pack, sb.cpar, sb.tiles,
                                                      sb.ops, **kw), 1),
-             "bound_ms": bms, "bound_by": by, "library_ms": None}
+             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
     emit({"phase": "resident", "grid": [64, 128], "batch": B, "sort": "predict",
           "cols_per_tile": cb, "vs_streamed": vs_streamed, "limits": MEGA_BATCH_LIMITS,
+          "vs_streamed_equal": bool(torch.equal(rows(res), rows(stm))
+                                    and torch.equal(res.n_orders, stm.n_orders)),
           "f64_rows_rel_diff": rel_err(rows(r64), rows(s64)),
           "launches_without_predictor": {"resident": res_own, "streamed": stm_own},
           "resident": {"wall_s": [r[0] for r in runs[False]], "launches": res_l,
@@ -1104,7 +1187,7 @@ def phase_resident(device):
                              "vs_streamed": coarse_vs_streamed,
                              "vs_plain": coarse_vs_plain},
           "mega_call": {**{k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                 "bound_by")},
+                                                 "bound_by", "library_ms")},
                         "vs_plain": vs_plain, "limits": MEGA_BATCH_LIMITS}})
     return entry
 
@@ -1148,6 +1231,7 @@ def phase_sweep_cli(device):
     if launches["mega_call"] != 2 * (B // chunk):
         fail(f"sweep_cli: {launches['mega_call']} mega_call launches for "
              f"{B // chunk} chunks")
+    mega_tc_ok(launches, "sweep_cli")
     res = load_sweep(out_dir)
     M = preset.grid.nb_angles
     for k in ("i_toa", "i_surface"):

@@ -160,8 +160,13 @@ class SolverOptions:
     - ``max_orders``  hard cap on scattering orders.
     - ``tol``         series truncation criterion (1e-4 = 100 ppm).
     - ``dtype``       compute dtype ('float32' | 'float64').
-    - ``mm``          matmul precision mode for float32 (None = 'bf16x3');
-                      float64 always runs 'highest'.
+    - ``mm``          matmul precision mode of the float32 Jₙ products:
+                      'bf16x3' | 'bf16x5' | 'highest' (the split
+                      decompositions of ops/precision.py, or full
+                      precision).  None is the engine's default: 'bf16x3'
+                      for the mega engine, full-precision products
+                      ('highest') for the fused engine, as in the JAX
+                      package.  float64 always runs at full precision.
     """
 
     surface: str = "lambertian"

@@ -11,7 +11,9 @@
 // the bit).  This translation unit holds only the variants of
 // sos_rt_tpu_torch/tools/ablate_kernel.py, for 256 threads (Mp <= 256), in
 // float32 (bf16x3, highest) and float64 (highest): each variant is a whole
-// kernel, and the solve's own build (megakernel.cu) stays as it is.
+// kernel, and the solve's own build (megakernel.cu) stays as it is.  The
+// float32 bf16x3 variants run their products on the tensor cores, as
+// sos_mega does (mega_mma.cuh).
 // Bound on the H100: as sos_mega's, less the stages cut out.
 // Every entry point returns a CUDA error code; the caller raises on non-0.
 #include "mega_body.cuh"
@@ -66,7 +68,8 @@ int sos_mega_ablate_blocks(int ab, int dtype, int mode, int Mp, int slot) {
 int sos_mega_ablate(int ab, int dtype, int mode, int lamb, int full,
                     const void* pack, const void* cpar, const void* tiles,
                     const void* colc, const void* ws_hi, const void* ws_lo,
-                    const void* astk_hi, const void* astk_lo, const void* tap_col,
+                    const void* astk_hi, const void* astk_lo, const void* ws_tc,
+                    const void* astk_tc, const void* tap_col,
                     const void* tap_hi, const void* tap_lo, const void* pvt,
                     const void* bct_hi, const void* bct_lo, void* work,
                     void* counter, void* o0, void* o1, void* o2, void* o3,
@@ -77,9 +80,9 @@ int sos_mega_ablate(int ab, int dtype, int mode, int lamb, int full,
   cudaStream_t st = (cudaStream_t)stream;
   return dispatch_ablate(ab, dtype, mode, [&](auto tv, auto mv, auto abv) {
     return launch_mega<decltype(tv), decltype(mv)::value, 256, decltype(abv)::value>(
-        pack, cpar, tiles, colc, ws_hi, ws_lo, astk_hi, astk_lo, tap_col, tap_hi,
-        tap_lo, pvt, bct_hi, bct_lo, work, counter, o0, o1, o2, o3, stats, lamb,
-        full, L, Cg, cb, Mp, mr, slot, nblocks, max_orders, tol, st);
+        pack, cpar, tiles, colc, ws_hi, ws_lo, astk_hi, astk_lo, ws_tc, astk_tc,
+        tap_col, tap_hi, tap_lo, pvt, bct_hi, bct_lo, work, counter, o0, o1, o2, o3,
+        stats, lamb, full, L, Cg, cb, Mp, mr, slot, nblocks, max_orders, tol, st);
   });
 }
 

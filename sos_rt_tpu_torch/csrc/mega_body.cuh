@@ -19,7 +19,14 @@
 //   AB_NORATIO   the ratio keeps its seed
 // With AB = 0 every `if constexpr` below drops out and the kernel is the
 // solve.
+//
+// The two quad products (I1's surface product, the J_n source product) run
+// on the tensor cores (mega_mma.cuh) in float32 'bf16x3' / 'bf16x5' with
+// 256 threads (Mp <= 256), from the bf16 operator copies ws_tc / astk_tc;
+// float64, 'highest' and the 512-thread block (Mp > 256) keep the SIMT
+// product quad_gemm_tile of sos_tiles.cuh.
 #pragma once
+#include "mega_mma.cuh"
 #include "sos_tiles.cuh"
 
 namespace {
@@ -44,6 +51,9 @@ template <typename T> struct MegaArgs {
   T* stats;           // (3, Cg): n, converged, ratio
   int L, Cg, cb, Mp, mr, slot, lamb, full, max_orders;
   double tol;
+  // the bf16 operator copies (2, 4Mp, Kp) of the tensor-core product
+  // (rmma::takes_tc builds; null and unread otherwise)
+  const uint16_t *ws_tc, *astk_tc;
 };
 
 // max that keeps a NaN (as torch.amax / torch.maximum do)
@@ -101,7 +111,9 @@ template <typename T> __device__ __forceinline__ T ratio_of(T a, T b) {
 template <typename T, int MODE, int NT, int AB = 0>
 __global__ void __launch_bounds__(NT, NT == 256 ? MIN_BLOCKS_256 : 1)
 mega_kernel(const MegaArgs<T> a) {
-  __shared__ GemmSmem<T, MODE> gsm;
+  constexpr bool TC = rmma::takes_tc<T, MODE, NT>();
+  // the SIMT product's tiles (the tensor-core product's are dynamic)
+  __shared__ std::conditional_t<TC, char, GemmSmem<T, MODE>> gsm;
   __shared__ int sred[32];
   __shared__ T sredv[32];
   __shared__ T s_ratio[CB_MAX], s_n[CB_MAX];
@@ -115,7 +127,7 @@ mega_kernel(const MegaArgs<T> a) {
   const int gsize = ((Mp + 31) / 32) * 32, ngroups = NT / gsize;
   const int g = tid / gsize, gt = tid - g * gsize;
   const bool in_group = g < ngroups;
-  T* gs = reinterpret_cast<T*>(smem_raw) +
+  T* gs = reinterpret_cast<T*>(smem_raw + rmma::smem_bytes<T, MODE, NT>()) +
           (in_group ? g : 0) * pass_b_smem_elems<T, MODE>(Mp, a.slot);
   const int w0 = g * (gsize >> 5), nw = gsize >> 5;
 
@@ -144,10 +156,14 @@ mega_kernel(const MegaArgs<T> a) {
       EpiFirstOrder<T> epi{a.pack, pm, a.tiles, a.colc, a.cpar, fdn, fup, Mp, mr,
                            a.lamb != 0};
       // a specular surface has no surface-integral product: K = 0
-      for (int r0 = 0; r0 < R; r0 += BM)
-        for (int n0 = 0; n0 < Mp; n0 += BN)
-          quad_gemm_tile<T, MODE>(ld, epi, a.astk_hi, a.astk_lo, R, Mp,
-                                  a.lamb ? Mp : 0, r0, n0, tid, worker, gsm);
+      if constexpr (TC) {
+        rmma::quad_tile<MODE>(ld, epi, a.astk_tc, R, Mp, a.lamb ? Mp : 0, tid);
+      } else {
+        for (int r0 = 0; r0 < R; r0 += BM)
+          for (int n0 = 0; n0 < Mp; n0 += BN)
+            quad_gemm_tile<T, MODE>(ld, epi, a.astk_hi, a.astk_lo, R, Mp,
+                                    a.lamb ? Mp : 0, r0, n0, tid, worker, gsm);
+      }
     }
     if constexpr ((AB & AB_NOPASSA) != 0) {
       for (size_t i = tid; i < plane; i += NT) sdn[i] = jnu[i] = T(0);
@@ -198,10 +214,14 @@ mega_kernel(const MegaArgs<T> a) {
         } else {
           LoadFields<T> ld{fdn, fup, Mp};
           EpiSource<T> epi{a.pack, pm, sdn, jnu, Mp};
-          for (int r0 = 0; r0 < R; r0 += BM)
-            for (int n0 = 0; n0 < Mp; n0 += BN)
-              quad_gemm_tile<T, MODE>(ld, epi, a.ws_hi, a.ws_lo, R, Mp, 2 * Mp,
-                                      r0, n0, tid, worker, gsm);
+          if constexpr (TC) {
+            rmma::quad_tile<MODE>(ld, epi, a.ws_tc, R, Mp, 2 * Mp, tid);
+          } else {
+            for (int r0 = 0; r0 < R; r0 += BM)
+              for (int n0 = 0; n0 < Mp; n0 += BN)
+                quad_gemm_tile<T, MODE>(ld, epi, a.ws_hi, a.ws_lo, R, Mp, 2 * Mp,
+                                        r0, n0, tid, worker, gsm);
+          }
         }
         __syncthreads();
         for (int i = tid; i < cb * Mp; i += NT)
@@ -275,10 +295,22 @@ mega_kernel(const MegaArgs<T> a) {
 
 int threads_for(int Mp) { return Mp <= 256 ? 256 : 512; }
 
-template <typename T, int MODE>
+// dynamic shared memory of mega_kernel<T, MODE, NT>: the tensor-core
+// product's stages, then pass B's rows, a group's each
+template <typename T, int MODE, int NT>
 size_t smem_for(int Mp, int slot) {
-  const int nt = threads_for(Mp), gsize = ((Mp + 31) / 32) * 32;
-  return sizeof(T) * (nt / gsize) * pass_b_smem_elems<T, MODE>(Mp, slot);
+  const int gsize = ((Mp + 31) / 32) * 32;
+  return rmma::smem_bytes<T, MODE, NT>() +
+         sizeof(T) * (NT / gsize) * pass_b_smem_elems<T, MODE>(Mp, slot);
+}
+
+// allow mega_kernel<T, MODE, NT, AB> the dynamic shared memory `bytes` on
+// the current device (needed above 48 KiB)
+template <typename T, int MODE, int NT, int AB>
+cudaError_t allow_smem(size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(mega_kernel<T, MODE, NT, AB>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 bool shape_ok(int Mp, int mr, int slot, int cb, int Cg) {
@@ -294,18 +326,22 @@ int resident_blocks(int Mp, int slot) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = allow_smem<T, MODE, NT, AB>(smem_for<T, MODE, NT>(Mp, slot));
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mega_kernel<T, MODE, NT, AB>, NT, smem_for<T, MODE>(Mp, slot));
+        &per_sm, mega_kernel<T, MODE, NT, AB>, NT, smem_for<T, MODE, NT>(Mp, slot));
   if (e != cudaSuccess) return -(int)e;
   return per_sm > 0 ? sms * per_sm : -(int)cudaErrorLaunchOutOfResources;
 }
 
-// Launch mega_kernel<T, MODE, NT, AB> on the arguments of sos_mega.
+// Launch mega_kernel<T, MODE, NT, AB> on the arguments of sos_mega.  A
+// build with the tensor-core product needs the bf16 operator copies (astk_tc
+// only for a Lambertian surface): without them it refuses to launch.
 template <typename T, int MODE, int NT, int AB>
 int launch_mega(const void* pack, const void* cpar, const void* tiles,
                 const void* colc, const void* ws_hi, const void* ws_lo,
-                const void* astk_hi, const void* astk_lo, const void* tap_col,
+                const void* astk_hi, const void* astk_lo, const void* ws_tc,
+                const void* astk_tc, const void* tap_col,
                 const void* tap_hi, const void* tap_lo, const void* pvt,
                 const void* bct_hi, const void* bct_lo, void* work, void* counter,
                 void* o0, void* o1, void* o2, void* o3, void* stats, int lamb,
@@ -318,8 +354,16 @@ int launch_mega(const void* pack, const void* cpar, const void* tiles,
                       (const T*)pvt, (const T*)bct_hi, (const T*)bct_lo,
                       (T*)work, (int*)counter, (T*)o0, (T*)o1, (T*)o2, (T*)o3,
                       (T*)stats, L, Cg, cb, Mp, mr, slot, lamb, full,
-                      max_orders, tol};
-  mega_kernel<T, MODE, NT, AB><<<nblocks, NT, smem_for<T, MODE>(Mp, slot), st>>>(a);
+                      max_orders, tol, (const uint16_t*)ws_tc,
+                      (const uint16_t*)astk_tc};
+  if constexpr (rmma::takes_tc<T, MODE, NT>()) {
+    if (ws_tc == nullptr || (lamb && astk_tc == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_for<T, MODE, NT>(Mp, slot);
+  const cudaError_t e = allow_smem<T, MODE, NT, AB>(smem);
+  if (e != cudaSuccess) return (int)e;
+  mega_kernel<T, MODE, NT, AB><<<nblocks, NT, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -28,18 +28,21 @@
 // tiles and pass B's rows.  The summary outputs need no I_tot planes: the
 // four TOA/surface rows are accumulated in place in the outputs.
 //
-// The three passes are the device functions of sos_tiles.cuh that the
-// streamed kernels (megastream.cu) call too, summed in the same order, so
-// the resident and the streamed solve agree bit for bit.  The block has one
-// thread shape for all of them: NT = 256 threads (512 for Mp > 256).  The
-// product uses the first 256 as 16 x 16 workers; pass B splits the block in
-// groups of round32(Mp) threads, one column each.
+// The passes are the device functions of sos_tiles.cuh that the streamed
+// kernels (megastream.cu) call too, so in float64 and float32 'highest' the
+// resident and the streamed solve agree bit for bit.  The block has one
+// thread shape for all of them: NT = 256 threads (512 for Mp > 256).  Pass B
+// splits the block in groups of round32(Mp) threads, one column each.
 //
 // Bound on the H100: operations.  Per column and order the source product
-// is 2*(4Mp)*(2Mp)*L operations per bf16 pass (25.2 MFLOP in three passes
-// at 64x128) against ~0.3 MB of plane traffic that stays in L2.  The
-// product runs on FP32 FMAs (as in the streamed kernels); tensor cores and
-// planes in shared memory are later work.
+// is 2*(4Mp)*(2Mp)*L operations per bf16 pass (8.4 MFLOP, 25.2 in three
+// passes at 64x128) against ~0.3 MB of plane traffic that stays in L2.  In
+// float32 'bf16x3' / 'bf16x5' with 256 threads the two products run on the
+// tensor cores (mega_mma.cuh: mma.sync bf16 tiles written for this kernel's
+// 128 registers and two blocks an SM) from the bf16 operator copies ws_tc /
+// astk_tc, so they sum in another order than the streamed passes' wgmma
+// mainloop; float64, 'highest' and Mp > 256 (512 threads) keep the SIMT
+// product of sos_tiles.cuh (quad_gemm_tile, 16 x 16 workers).
 // The kernel's body is in mega_body.cuh, which mega_ablate.cu builds too
 // with stages cut out (tools/ablate_kernel.py); this file builds the solve.
 // The entry point returns cudaGetLastError(); the caller raises on non-0.
@@ -62,11 +65,15 @@ int sos_mega_blocks(int dtype, int mode, int Mp, int slot) {
 
 // dtype: 0 float32, 1 float64; mode: 0 highest, 1 bf16x3, 2 bf16x5.
 // pack (PK_W, L, Cg), cpar (CP_W, Cg), tiles (NI, Cg, Mp); work holds
-// nblocks * 4 * L * cb * Mp elements; counter is one zeroed int.
+// nblocks * 4 * L * cb * Mp elements; counter is one zeroed int.  ws_tc,
+// astk_tc: the bf16 operator copies (2, 4Mp, Kp), K zero-padded to a
+// multiple of 32, of the tensor-core product (float32 bf16x3 / bf16x5 with
+// Mp <= 256, astk_tc for a Lambertian surface; null otherwise).
 int sos_mega(int dtype, int mode, int lamb, int full, const void* pack,
              const void* cpar, const void* tiles, const void* colc,
              const void* ws_hi, const void* ws_lo, const void* astk_hi,
-             const void* astk_lo, const void* tap_col, const void* tap_hi,
+             const void* astk_lo, const void* ws_tc, const void* astk_tc,
+             const void* tap_col, const void* tap_hi,
              const void* tap_lo, const void* pvt, const void* bct_hi,
              const void* bct_lo, void* work, void* counter, void* o0, void* o1,
              void* o2, void* o3, void* stats, int L, int Cg, int cb, int Mp,
@@ -79,10 +86,10 @@ int sos_mega(int dtype, int mode, int lamb, int full, const void* pack,
     using T = decltype(tv);
     constexpr int MODE = decltype(mv)::value;
     auto launch = Mp <= 256 ? launch_mega<T, MODE, 256, 0> : launch_mega<T, MODE, 512, 0>;
-    return launch(pack, cpar, tiles, colc, ws_hi, ws_lo, astk_hi, astk_lo, tap_col,
-                  tap_hi, tap_lo, pvt, bct_hi, bct_lo, work, counter, o0, o1, o2, o3,
-                  stats, lamb, full, L, Cg, cb, Mp, mr, slot, nblocks, max_orders,
-                  tol, st);
+    return launch(pack, cpar, tiles, colc, ws_hi, ws_lo, astk_hi, astk_lo, ws_tc,
+                  astk_tc, tap_col, tap_hi, tap_lo, pvt, bct_hi, bct_lo, work, counter,
+                  o0, o1, o2, o3, stats, lamb, full, L, Cg, cb, Mp, mr, slot, nblocks,
+                  max_orders, tol, st);
   });
 }
 

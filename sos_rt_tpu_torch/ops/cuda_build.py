@@ -35,7 +35,7 @@ SIGNATURES = {
     },
     "megakernel": {
         "sos_mega_blocks": [_I] * 4,
-        "sos_mega": [_I] * 4 + [_P] * 21 + [_I] * 8 + [_D, _P],
+        "sos_mega": [_I] * 4 + [_P] * 23 + [_I] * 8 + [_D, _P],
     },
     "fused_sweeps": {
         "sos_down_sweep": [_I] + [_P] * 4 + [_I] * 3 + [_Q, _Q, _P],
@@ -47,7 +47,7 @@ SIGNATURES = {
     },
     "mega_ablate": {
         "sos_mega_ablate_blocks": [_I] * 5,
-        "sos_mega_ablate": [_I] * 5 + [_P] * 21 + [_I] * 8 + [_D, _P],
+        "sos_mega_ablate": [_I] * 5 + [_P] * 23 + [_I] * 8 + [_D, _P],
     },
 }
 

@@ -209,10 +209,11 @@ def down_sweep(jn_down, pack, mu_down_safe):
                          f"do not fit the source {tuple(jn_down.shape)}")
     out = torch.empty((B, L, M), dtype=jn_down.dtype, device=jn_down.device)
     lib = cuda_build.library("fused_sweeps")
-    cuda_build.check(lib.sos_down_sweep(
-        dt, jn_down.data_ptr(), pack.data_ptr(), mu_down_safe.data_ptr(),
-        out.data_ptr(), B, L, M, jn_down.stride(0), jn_down.stride(1), stream),
-        "sos_down_sweep")
+    with torch.cuda.device(jn_down.device):  # the launch acts on the current device
+        cuda_build.check(lib.sos_down_sweep(
+            dt, jn_down.data_ptr(), pack.data_ptr(), mu_down_safe.data_ptr(),
+            out.data_ptr(), B, L, M, jn_down.stride(0), jn_down.stride(1), stream),
+            "sos_down_sweep")
     down_sweep.launches += 1
     return out
 
@@ -235,10 +236,11 @@ def up_sweep_smooth(jn_up, pack, cparams, mu_up_row, bc):
         raise ValueError(f"the up kernel takes 4 <= M <= {MAX_UP_ANGLES} angles; got {M}")
     out = torch.empty((B, L, M), dtype=jn_up.dtype, device=jn_up.device)
     lib = cuda_build.library("fused_sweeps")
-    cuda_build.check(lib.sos_up_sweep(
-        dt, jn_up.data_ptr(), pack.data_ptr(), cparams.data_ptr(),
-        mu_up_row.data_ptr(), bc.data_ptr(), out.data_ptr(), B, L, M,
-        jn_up.stride(0), jn_up.stride(1), stream), "sos_up_sweep")
+    with torch.cuda.device(jn_up.device):
+        cuda_build.check(lib.sos_up_sweep(
+            dt, jn_up.data_ptr(), pack.data_ptr(), cparams.data_ptr(),
+            mu_up_row.data_ptr(), bc.data_ptr(), out.data_ptr(), B, L, M,
+            jn_up.stride(0), jn_up.stride(1), stream), "sos_up_sweep")
     up_sweep_smooth.launches += 1
     return out
 

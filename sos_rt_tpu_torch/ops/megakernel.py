@@ -410,6 +410,11 @@ def make_i1_block(til, emu_dn, ivup, row0, lastrow, constc, pka, pkr,
 
 MAX_COLS_PER_TILE = 32      # most columns one thread block's tile may hold
 MAX_RESIDENT_MP = 512       # the kernel's thread shapes cover Mp <= 512
+MAX_TC_MP = 256             # the 256-thread block: its products may take the tensor cores
+# the k-tile of the tensor-core products (BK of csrc/quad_mma.cuh and of
+# csrc/mega_mma.cuh): their bf16 operator copies pad K with zeros to a
+# multiple of it (megastream.tc_operator)
+TC_K_TILE = 32
 
 
 def default_cols_per_tile(mp: int) -> int:
@@ -447,6 +452,36 @@ def ablate_mask(ablate: str) -> int:
     """The AB bit mask of an ``ablate`` string."""
     ab = ablate_flags(ablate)
     return sum(1 << i for i, f in enumerate(ABLATE_FLAGS) if f in ab)
+
+
+def takes_tensor_cores(ops) -> bool:
+    """Whether sos_mega runs its two products (I₁'s surface product, the Jₙ
+    source product) on the tensor cores (csrc/mega_mma.cuh): float32 with a
+    bf16 split ('bf16x3', 'bf16x5') and Mp ≤ MAX_TC_MP.  float64,
+    'highest' and the 512-thread block (Mp > 256) keep the SIMT product."""
+    return (ops.dtype == torch.float32 and ops.mm != "highest"
+            and ops.mp <= MAX_TC_MP)
+
+
+def tc_operands(ops):
+    """(ws_tc, astk_tc): the bf16 operator copies (2, 4Mp, Kp) that
+    sos_mega's tensor-core product reads, exactly where it takes the tensor
+    cores (:func:`takes_tensor_cores`; astk_tc only for a Lambertian
+    surface), else None: the kernel reads no copy there.  Raises where a
+    copy the product needs is missing (StreamOps builds them on the card
+    only): the kernel would refuse to launch, and nothing falls back to the
+    SIMT product."""
+    if not takes_tensor_cores(ops):
+        return None, None
+    need = [("ws_tc", 2 * ops.mp)] + ([("astk_tc", ops.mp)] if ops.lamb else [])
+    for name, k in need:
+        w = getattr(ops, name)
+        kp = -(-k // TC_K_TILE) * TC_K_TILE
+        if w is None or tuple(w.shape) != (2, 4 * ops.mp, kp) or w.dtype != torch.bfloat16:
+            raise ValueError(f"the tensor-core product needs ops.{name} as a (2, "
+                             f"{4 * ops.mp}, {kp}) bfloat16 copy; got "
+                             f"{None if w is None else (tuple(w.shape), w.dtype)}")
+    return ops.ws_tc, (ops.astk_tc if ops.lamb else None)
 
 
 def mega_plain(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
@@ -525,7 +560,10 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
     tensors it runs :func:`mega_plain` tile by tile.  Bound by the
     operations of the source product; one thread block per tile keeps the
     tile's four field planes in an L2-sized workspace and evaluates the
-    loop condition itself, so the host never waits between orders.
+    loop condition itself, so the host never waits between orders.  In
+    float32 'bf16x3' / 'bf16x5' with Mp ≤ 256 its two products run on the
+    tensor cores from the bf16 operator copies (:func:`tc_operands`); those
+    launches also count in ``mega_call.tc_launches``.
     Returns what :func:`mega_plain` returns, for all C columns.
 
     ``ablate`` (one of ABLATE_VARIANTS on a card; results are wrong)
@@ -572,7 +610,9 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
         lib = cuda_build.library("megakernel")
         blocks_fn, launch, name = lib.sos_mega_blocks, lib.sos_mega, "sos_mega"
     dev, dtype = pack.device, ops.dtype
-    # the occupancy query and the launch act on the current device
+    ws_tc, astk_tc = tc_operands(ops)
+    # the occupancy query, the shared-memory attribute and the launch act on
+    # the current device
     with torch.cuda.device(dev):
         blocks = blocks_fn(dt, mm, Mp, ops.slot)
         if blocks <= 0:
@@ -585,16 +625,20 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
         stats = torch.empty((3, C), dtype=dtype, device=dev)
         o = [t.data_ptr() for t in outs] + [0, 0]
         cols, t_hi, t_lo = ops.taps
-        p = lambda t: t.data_ptr()
+        p = lambda t: t.data_ptr() if t is not None else None
         cuda_build.check(launch(
             dt, mm, int(ops.lamb), int(full), p(pack), p(cpar), p(tiles), p(ops.colc),
             p(ops.ws[0]), p(ops.ws[1]), p(ops.astk[0]), p(ops.astk[1]),
+            p(ws_tc), p(astk_tc),
             p(cols), p(t_hi), p(t_lo), p(ops.pvt), p(ops.bct[0]), p(ops.bct[1]),
             p(work), p(counter), o[0], o[1], o[2], o[3], p(stats),
             L, C, cb, Mp, ops.nb_angles, ops.slot, nblocks, int(max_orders),
             float(tol), stream), name)
     mega_call.launches += 1
+    mega_call.tc_launches += ws_tc is not None
     return (*outs, stats)
 
 
 mega_call.launches = 0
+# launches whose products ran on the tensor cores (csrc/mega_mma.cuh)
+mega_call.tc_launches = 0

@@ -23,10 +23,10 @@ also what the kernels are held against on the card.  In float32 'bf16x3'
 and 'bf16x5' the products of passI and passA run on the tensor cores
 (``csrc/quad_mma.cuh``), from bf16 copies of the split operators that
 :meth:`StreamOps.build` makes on the card; those launches also count in
-``tc_launches``.  The three bodies, as device functions (the SIMT product
-in every mode), make up the resident whole-loop kernel
-(``ops/megakernel.py::mega_call``), which runs the order loop on the
-device instead of in :func:`solve_block`.
+``tc_launches``.  The three bodies, as device functions, make up the
+resident whole-loop kernel (``ops/megakernel.py::mega_call``), which runs
+the order loop on the device instead of in :func:`solve_block`, with its
+own tensor-core product (``csrc/mega_mma.cuh``) from the same copies.
 """
 from __future__ import annotations
 
@@ -40,16 +40,13 @@ from sos_rt_tpu_torch.ops.megakernel import (
     CP_CONST, CP_GRD, PK_ASTAR, PK_CDN, PK_CHOICE, PK_COEF_AER, PK_COEF_ATM,
     PK_CUP, PK_GS, PK_HDT_DN, PK_HDT_UP, PK_R1, PK_R2, RC_EMU_DN, RC_EMU_UP,
     RC_IVDN, RC_IVUP, RC_MUUP, RC_PKA, RC_PKR, ST_CONV, ST_N, ST_RATIO,
-    _dot3, _smooth_up, add_terms, angle_rows, band_fix_tile, band_validity,
-    bc_matrix, make_i1_block, mega_call, ratio_rows_tile, split_parts,
-    stencil_taps)
+    TC_K_TILE, _dot3, _smooth_up, add_terms, angle_rows, band_fix_tile,
+    band_validity, bc_matrix, make_i1_block, mega_call, ratio_rows_tile,
+    split_parts, stencil_taps)
 from sos_rt_tpu_torch.ops.precision import split_bf16
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _MM_CODE = {"highest": 0, "bf16x3": 1, "bf16x5": 2}
-# the k-tile of the tensor-core mainloop (csrc/quad_mma.cuh, BK): its bf16
-# operator copies pad K with zeros to a multiple of it
-TC_K_TILE = 32
 
 
 def takes_tensor_cores(dtype, mm: str) -> bool:
@@ -284,10 +281,13 @@ def passI(pack, tiles, cpar, ops: StreamOps):
     fup = torch.empty_like(fdn)
     tc, w_tc, kp = _tc_args(ops, ops.astk_tc)
     lib = cuda_build.library("megastream")
-    cuda_build.check(lib.sos_passI(
-        dt, mm, int(ops.lamb), _ptr(pack), _ptr(tiles), _ptr(cpar),
-        _ptr(ops.colc), _ptr(ops.astk[0]), _ptr(ops.astk[1]), w_tc, kp,
-        _ptr(fdn), _ptr(fup), L, C, ops.mp, ops.nb_angles, stream), "sos_passI")
+    # the launch (and the tensor-core kernel's shared-memory attribute) acts
+    # on the current device
+    with torch.cuda.device(pack.device):
+        cuda_build.check(lib.sos_passI(
+            dt, mm, int(ops.lamb), _ptr(pack), _ptr(tiles), _ptr(cpar),
+            _ptr(ops.colc), _ptr(ops.astk[0]), _ptr(ops.astk[1]), w_tc, kp,
+            _ptr(fdn), _ptr(fup), L, C, ops.mp, ops.nb_angles, stream), "sos_passI")
     passI.launches += 1
     passI.tc_launches += tc
     return fdn, fup
@@ -307,10 +307,11 @@ def passA(pack, fdn, fup, ops: StreamOps):
     jnup = torch.empty_like(fdn)
     tc, w_tc, kp = _tc_args(ops, ops.ws_tc)
     lib = cuda_build.library("megastream")
-    cuda_build.check(lib.sos_passA(
-        dt, mm, _ptr(pack), _ptr(fdn), _ptr(fup), _ptr(ops.colc),
-        _ptr(ops.ws[0]), _ptr(ops.ws[1]), w_tc, kp, _ptr(sdn), _ptr(jnup),
-        L, C, Mp, stream), "sos_passA")
+    with torch.cuda.device(pack.device):
+        cuda_build.check(lib.sos_passA(
+            dt, mm, _ptr(pack), _ptr(fdn), _ptr(fup), _ptr(ops.colc),
+            _ptr(ops.ws[0]), _ptr(ops.ws[1]), w_tc, kp, _ptr(sdn), _ptr(jnup),
+            L, C, Mp, stream), "sos_passA")
     passA.launches += 1
     passA.tc_launches += tc
     return sdn, jnup
@@ -329,11 +330,12 @@ def passB(pack, sdn, jnup, cpar, ops: StreamOps):
     fup = torch.empty_like(sdn)
     cols, t_hi, t_lo = ops.taps
     lib = cuda_build.library("megastream")
-    cuda_build.check(lib.sos_passB(
-        dt, mm, _ptr(pack), _ptr(sdn), _ptr(jnup), _ptr(cpar), _ptr(ops.colc),
-        _ptr(cols), _ptr(t_hi), _ptr(t_lo), _ptr(ops.pvt),
-        _ptr(ops.bct[0]), _ptr(ops.bct[1]), _ptr(fdn), _ptr(fup),
-        L, C, Mp, ops.nb_angles, ops.slot, stream), "sos_passB")
+    with torch.cuda.device(pack.device):
+        cuda_build.check(lib.sos_passB(
+            dt, mm, _ptr(pack), _ptr(sdn), _ptr(jnup), _ptr(cpar), _ptr(ops.colc),
+            _ptr(cols), _ptr(t_hi), _ptr(t_lo), _ptr(ops.pvt),
+            _ptr(ops.bct[0]), _ptr(ops.bct[1]), _ptr(fdn), _ptr(fup),
+            L, C, Mp, ops.nb_angles, ops.slot, stream), "sos_passB")
     passB.launches += 1
     return fdn, fup
 
@@ -350,7 +352,7 @@ ALL_KERNELS = KERNELS + (mega_call,) + fused_sweeps.KERNELS + micro.KERNELS
 def reset_launches() -> None:
     for k in ALL_KERNELS:
         k.launches = 0
-    for k in TC_KERNELS:
+    for k in TC_KERNELS + (mega_call,):
         k.tc_launches = 0
 
 

@@ -71,6 +71,16 @@ def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                 device=None):
     """Solve a batch of columns on one GPU.
 
+    ``engine`` defaults to 'mega', where the JAX package's
+    ``solve_batch`` defaults to 'reference': the reference engine
+    (``solve_column`` batched) is not ported yet, and ``engine='reference'``
+    raises NotPortedError.  So a call that omits ``engine`` runs another
+    engine than the JAX package's: in float32 the mega engine's bf16x3
+    split products (``opts.mm=None``) where the reference runs
+    full-precision ones, and order counts may differ in up to 0.1% of
+    columns (a ratio within rounding of the 100 ppm line); float64 results
+    agree to rtol 1e-9.
+
     ``engine='mega'``: the whole-solve engine (resident or streamed, as
     fused.resolve_stream picks for the grid).  When a column's polyfit band
     does not cover the grid's small-µ columns (:func:`mega_small_ok` false)

@@ -23,9 +23,11 @@ the µ→0⁺ smoothing blend (its 1e-4 threshold is discontinuous) and change a
 few angles of a layer by 1e-3..1e-2 of scale, so there at most one value in
 a thousand may differ by more than 1e-4.  Against the streamed kernels the
 resident kernel agrees to the bit in float64, where both run the same SIMT
-product; in float32 the streamed product runs on the tensor cores and the
-resident one on SIMT FMAs, so the two are held to the same limits as
-mega_call against mega_plain.
+product; in float32 'bf16x3' / 'bf16x5' both run their products on the
+tensor cores, in two mainloops (wgmma in quad_mma.cuh, mma.sync in
+mega_mma.cuh), so the two are held to the same limits as mega_call against
+mega_plain (chip_smoke.py's MEGA_BATCH_LIMITS where the batch has 16
+columns or more).
 The fused engine's two sweep kernels (down_sweep, up_sweep_smooth) repeat
 their plain versions operation by operation and must equal them to the bit,
 in float32 and in float64.  So do the micro kernels (csrc/micro.cu), rep by
@@ -172,9 +174,9 @@ def test_resident_equals_streamed_to_the_bit(cuda, dtype, outputs):
     # 12 columns: a multiple of the resident tile (4) and one streamed block,
     # so both executions prepare the same unpadded batch (cuBLAS may sum the
     # host preparation's products in another order for another batch shape).
-    # To the bit in float64 (the same SIMT product); in float32 the streamed
-    # product runs on the tensor cores: equal order counts, rows within the
-    # limits of two float32 loops
+    # To the bit in float64 (the same SIMT product); in float32 both products
+    # run on the tensor cores in two mainloops: equal order counts, rows
+    # within the limits of two float32 loops
     scenes, tables = _inputs(cuda, dtype, batch=12)
     opts = SolverOptions(dtype=str(dtype).split(".")[1], max_orders=40)
     a, b = (solve_batch_mega(scenes, tables, GRID, opts, outputs=outputs,
@@ -196,8 +198,9 @@ def test_resident_thread_shapes(cuda, angles, layers, surface, mm):
     64 threads without a group), Mp = 104 (two groups of 128) and Mp = 264
     (one group in a block of 512), each against the streamed kernels: to the
     bit in float32 'highest' (both on the SIMT product), within the limits
-    of two float32 loops in 'bf16x3' (the streamed product on the tensor
-    cores)."""
+    of two float32 loops in 'bf16x3' (both products on the tensor cores in
+    two mainloops at Mp = 80 and 104; the resident one on SIMT FMAs at
+    Mp = 264)."""
     grid = GridSpec(angles, layers)
     scenes, tables = _inputs(cuda, torch.float32, batch=4, grid=grid)
     opts = SolverOptions(surface=surface, dtype="float32", mm=mm, max_orders=12)
@@ -282,6 +285,129 @@ def test_simt_modes_launch_no_tensor_core_product(cuda, dtype, mm):
     fdn, fup = ms.passI(pack, tiles, cpar, sb.ops)
     ms.passA(pack, fdn, fup, sb.ops)
     assert [(k.launches, k.tc_launches) for k in ms.TC_KERNELS] == [(1, 0), (1, 0)]
+
+
+# ---- the resident kernel's tensor-core product (csrc/mega_mma.cuh) ----
+
+# chip_smoke.py's MEGA_BATCH_LIMITS: two whole float32 loops whose products
+# sum in another order, over a batch of a thousand columns or more (the
+# shares of columns whose order counts differ and of summary-row values off
+# by more than 1e-4 of scale; the largest difference)
+MEGA_BATCH_LIMITS = {"n_differs_frac": 1e-3, "n_differs_max": 1.0,
+                     "rows_off_frac": 3e-3, "rows_max_rel": 5e-2}
+# the resident kernel's main-path Mp (the sweep's 64, the predictor's 8) and
+# ragged ones, no multiple of the 32-angle step (Mp = 80, 104)
+MEGA_TC_GRIDS = {"mp64": (64, 128), "mp8": (8, 16), "mp80": (75, 40), "mp104": (100, 24)}
+MEGA_TC_BATCH = 1024
+
+
+def _within_batch_limits(n_a, n_b, rows_a, rows_b, tol=1e-4):
+    """(within MEGA_BATCH_LIMITS, the findings, the mask of the columns whose
+    order count differs or that have a value off)."""
+    dn = (n_a - n_b).abs()
+    off = torch.cat([(a - b).abs() > tol * float(b.abs().max())
+                     for a, b in zip(rows_a, rows_b)], 1)
+    found = {"n_differs_frac": float((dn > 0).float().mean()),
+             "n_differs_max": float(dn.max()),
+             "rows_off_frac": float(off.float().mean()),
+             "rows_max_rel": max(_rel(a, b) for a, b in zip(rows_a, rows_b))}
+    ok = all(found[k] <= lim for k, lim in MEGA_BATCH_LIMITS.items())
+    return ok, found, (dn > 0) | off.any(1)
+
+
+def _tc_batch(device, grid, mm, surface):
+    grid = GridSpec(*MEGA_TC_GRIDS[grid])
+    scenes, tables = _inputs(device, torch.float32, batch=MEGA_TC_BATCH, grid=grid)
+    opts = SolverOptions(surface=surface, dtype="float32", mm=mm)
+    return grid, scenes, tables, opts
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("mm", ["bf16x3", "bf16x5"])
+@pytest.mark.parametrize("grid", list(MEGA_TC_GRIDS), ids=list(MEGA_TC_GRIDS))
+def test_tc_mega_matches_plain(cuda, grid, mm, surface):
+    """sos_mega with its products on the tensor cores against mega_plain,
+    float32, 1024 columns, within MEGA_BATCH_LIMITS; the columns that are
+    off agree with it in float64 (equal order counts, 1e-12), where no
+    sum's last bit reaches the smoothing threshold; each launch counts in
+    mega_call.tc_launches."""
+    grid, scenes, tables, opts = _tc_batch(cuda, grid, mm, surface)
+    sb = prepare_batch(scenes, tables, grid, opts, device=cuda)
+    kw = dict(tol=opts.tol, max_orders=opts.max_orders, full=False)
+    ms.reset_launches()
+    got = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **kw)
+    torch.cuda.synchronize()
+    assert (mk.mega_call.launches, mk.mega_call.tc_launches) == (1, 1)
+    want = mk.mega_plain(sb.pack, sb.cpar, sb.tiles, sb.ops, **kw)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    ok, found, off = _within_batch_limits(got[-1][mk.ST_N], want[-1][mk.ST_N],
+                                          got[:4], want[:4])
+    assert ok, found
+    cols = torch.nonzero(off)[:, 0]
+    if cols.numel():
+        s64, t64 = _inputs(cuda, torch.float64, batch=MEGA_TC_BATCH, grid=grid)
+        o64 = dataclasses.replace(opts, dtype="float64", mm="highest")
+        sb64 = prepare_batch(s64.map(lambda x: x[cols]), t64, grid, o64, device=cuda,
+                             cols_per_block=mk.default_cols_per_tile(sb.ops.mp))
+        g64 = mk.mega_call(sb64.pack, sb64.cpar, sb64.tiles, sb64.ops, **kw)
+        w64 = mk.mega_plain(sb64.pack, sb64.cpar, sb64.tiles, sb64.ops, **kw)
+        assert torch.equal(g64[-1][mk.ST_N], w64[-1][mk.ST_N])
+        for k, p in zip(g64[:4], w64[:4]):
+            assert _rel(k, p) <= 1e-12
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("mm", ["bf16x3", "bf16x5"])
+@pytest.mark.parametrize("grid", list(MEGA_TC_GRIDS), ids=list(MEGA_TC_GRIDS))
+def test_tc_mega_matches_streamed(cuda, grid, mm, surface):
+    """The resident execution (mega_mma.cuh's product) against the streamed
+    one (quad_mma.cuh's wgmma mainloop), float32, 1024 columns, within
+    MEGA_BATCH_LIMITS.  Where they are not, the message also gives each
+    against the plain version on the same batch (mega_plain), which tells
+    which of the two loops moved."""
+    grid, scenes, tables, opts = _tc_batch(cuda, grid, mm, surface)
+    a, b = (solve_batch_mega(scenes, tables, grid, opts, outputs="summary", sort=False,
+                             allow_small=True, stream=stream, device=cuda)
+            for stream in (False, True))
+    ok, found, _ = _within_batch_limits(a.n_orders, b.n_orders, (a.i_toa, a.i_surface),
+                                        (b.i_toa, b.i_surface))
+    if not ok:
+        sb = prepare_batch(scenes, tables, grid, opts, device=cuda)
+        want = mk.mega_plain(sb.pack, sb.cpar, sb.tiles, sb.ops, tol=opts.tol,
+                             max_orders=opts.max_orders, full=False)
+        B, m = MEGA_TC_BATCH, grid.nb_angles
+        plain = (torch.cat([want[0][:, :m], want[1][:, :m]], 1)[:B],
+                 torch.cat([want[2][:, :m], want[3][:, :m]], 1)[:B])
+        found = {"resident_vs_streamed": found, **{
+            f"{name}_vs_plain": _within_batch_limits(
+                s.n_orders, want[-1][mk.ST_N][:B], (s.i_toa, s.i_surface), plain)[1]
+            for name, s in (("resident", a), ("streamed", b))}}
+    assert ok, found
+
+
+@pytest.mark.parametrize("grid", list(MEGA_TC_GRIDS), ids=list(MEGA_TC_GRIDS))
+def test_simt_mega_float64_matches_plain_and_streamed(cuda, grid):
+    """float64 keeps the SIMT product: mega_call against mega_plain and the
+    resident against the streamed loop with equal order counts, rtol 1e-12;
+    no launch takes the tensor cores."""
+    grid = GridSpec(*MEGA_TC_GRIDS[grid])
+    scenes, tables = _inputs(cuda, torch.float64, batch=16, grid=grid)
+    opts = SolverOptions(dtype="float64")
+    sb = prepare_batch(scenes, tables, grid, opts, device=cuda)
+    kw = dict(tol=opts.tol, max_orders=opts.max_orders, full=False)
+    ms.reset_launches()
+    got = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **kw)
+    want = mk.mega_plain(sb.pack, sb.cpar, sb.tiles, sb.ops, **kw)
+    assert (mk.mega_call.launches, mk.mega_call.tc_launches) == (1, 0)
+    assert torch.equal(got[-1][mk.ST_N], want[-1][mk.ST_N])
+    for k, p in zip(got[:4], want[:4]):
+        torch.testing.assert_close(k, p, rtol=1e-12, atol=0.0)
+    a, b = (solve_batch_mega(scenes, tables, grid, opts, outputs="summary",
+                             allow_small=True, stream=stream, device=cuda)
+            for stream in (False, True))
+    assert torch.equal(a.n_orders, b.n_orders)
+    for x, y in ((a.i_toa, b.i_toa), (a.i_surface, b.i_surface)):
+        torch.testing.assert_close(x, y, rtol=1e-12, atol=0.0)
 
 
 def _second_order(device, dtype, grid, surface="lambertian", batch=3):

@@ -1,0 +1,247 @@
+"""The host side of the resident kernel's tensor-core product, and the
+wrappers' device guard, on the CPU.
+
+In float32 'bf16x3' / 'bf16x5' with Mp ≤ 256, ``sos_mega`` runs its two
+products (I₁'s surface product, the Jₙ source product) on the tensor cores
+(csrc/mega_mma.cuh) from the bf16 operator copies StreamOps builds on the
+card.  Here: ``mega_call`` hands exactly those copies to ``sos_mega`` in
+those modes and null pointers otherwise (float64, 'highest', Mp > 256, and
+the surface copy of a specular surface), counts the launches that take the
+tensor cores, and raises rather than launch without a copy the product
+needs; the copies at the sweep's Mp = 64 and the predictor's Mp = 8 hold hi
+and lo with K zero-padded to the k-tile; on CPU tensors ``mega_call`` still
+runs ``mega_plain`` and counts no launch.  Every kernel wrapper launches
+with the tensor's device current, so that the launch, the occupancy query
+and the shared-memory attribute act on that device; and the docstrings say
+what ``mm=None`` and the default engine mean.
+
+The kernel library, the CUDA calls and ``Tensor.is_cuda`` are faked (the
+``fake_card`` fixture), so these run the wrappers' card branch up to the
+launch; the kernels themselves run in tests/test_torch_cuda.py on a card.
+"""
+import contextlib
+import dataclasses
+import functools
+import inspect
+import types
+
+import pytest
+import torch
+
+from sos_rt_tpu_torch.config import GridSpec, Scene, SolverOptions
+from sos_rt_tpu_torch.fused import FusedBatch, prepare_batch
+from sos_rt_tpu_torch.ops import cuda_build
+from sos_rt_tpu_torch.ops import fused_sweeps as fs
+from sos_rt_tpu_torch.ops import megakernel as mk
+from sos_rt_tpu_torch.ops import megastream as ms
+from sos_rt_tpu_torch.parallel import broadcast_scene, solve_batch
+from sos_rt_tpu_torch.solver import PhaseTables
+
+CPU = torch.device("cpu")
+# real angle count of each padded Mp: the 64x128 sweep grid, the
+# predictor's 8x16 grid, a ragged one, and one past the 256-thread block
+ANGLES = {64: 64, 8: 8, 104: 100, 264: 260}
+
+
+@contextlib.contextmanager
+def _as_on_the_cpu():
+    """Lift the fake card's Tensor.is_cuda for a while: inputs are prepared
+    as the CPU prepares them."""
+    with pytest.MonkeyPatch.context() as m:
+        if "is_cuda" in vars(torch.Tensor):
+            m.delattr(torch.Tensor, "is_cuda")
+        yield
+
+
+def _batch(mp: int, mm: str, dtype=torch.float32, surface="lambertian"):
+    with _as_on_the_cpu():
+        return _prepared(mp, mm, dtype, surface)
+
+
+@functools.lru_cache(maxsize=None)
+def _prepared(mp, mm, dtype, surface):
+    grid = GridSpec(ANGLES[mp], 16)
+    tables = PhaseTables.from_models(grid, 0.5, aer=("hg", {"g": 0.7}), dtype=dtype,
+                                     device=CPU, cache=False)
+    opts = SolverOptions(surface=surface, dtype=str(dtype).split(".")[1], mm=mm,
+                         max_orders=6)
+    scenes = dataclasses.replace(
+        broadcast_scene(Scene(), 8, device=CPU),
+        grd_alb=torch.linspace(0.0, 0.8, 8, dtype=torch.float64),
+        tau_star_aer=torch.linspace(0.02, 0.35, 8, dtype=torch.float64))
+    return prepare_batch(scenes, tables, grid, opts, device=CPU)
+
+
+def _on_card(ops):
+    """ops with the bf16 operator copies StreamOps.build makes on a card."""
+    tc = ms.takes_tensor_cores(ops.dtype, ops.mm)
+    return dataclasses.replace(
+        ops, ws_tc=ms.tc_operator(*ops.ws) if tc else None,
+        astk_tc=ms.tc_operator(*ops.astk) if tc and ops.lamb else None)
+
+
+class FakeLibrary:
+    """Records each entry point's call and the devices made current then."""
+
+    def __init__(self, current):
+        self.current, self.calls = current, []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args, tuple(self.current)))
+            return 4 if name.endswith("_blocks") else 0
+        return entry
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Every tensor claims to be on a card; the kernel libraries, the
+    current stream and torch.cuda.device are fakes that record."""
+    current = []
+
+    @contextlib.contextmanager
+    def device(dev):
+        current.append(torch.device(dev))
+        try:
+            yield
+        finally:
+            current.pop()
+
+    lib = FakeLibrary(current)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True),
+                        raising=False)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=1234))
+    monkeypatch.setattr(cuda_build, "library", lambda name: lib)
+    ms.reset_launches()
+    yield lib
+    ms.reset_launches()
+
+
+def _mega_args(lib):
+    """{argument name: value} of the one sos_mega call the library saw."""
+    (name, args, current), = [c for c in lib.calls if c[0] == "sos_mega"]
+    names = ["dtype", "mode", "lamb", "full", "pack", "cpar", "tiles", "colc",
+             "ws_hi", "ws_lo", "astk_hi", "astk_lo", "ws_tc", "astk_tc"]
+    return dict(zip(names, args)), current
+
+
+def _call(sb, ops):
+    return mk.mega_call(sb.pack, sb.cpar, sb.tiles, ops, tol=1e-4, max_orders=6,
+                        full=False)
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("mm", ["bf16x3", "bf16x5"])
+@pytest.mark.parametrize("mp", [64, 8, 104])
+def test_mega_call_hands_the_bf16_copies_to_sos_mega(fake_card, mp, mm, surface):
+    sb = _batch(mp, mm, surface=surface)
+    ops = _on_card(sb.ops)
+    assert mk.takes_tensor_cores(ops)
+    _call(sb, ops)
+    args, current = _mega_args(fake_card)
+    assert args["ws_tc"] == ops.ws_tc.data_ptr()
+    if surface == "lambertian":
+        assert args["astk_tc"] == ops.astk_tc.data_ptr()
+    else:                              # no surface product: no copy
+        assert ops.astk_tc is None and args["astk_tc"] is None
+    assert current == (sb.pack.device,)
+    assert (mk.mega_call.launches, mk.mega_call.tc_launches) == (1, 1)
+
+
+@pytest.mark.parametrize("mp,dtype,mm", [(64, torch.float32, "highest"),
+                                         (64, torch.float64, "highest"),
+                                         (264, torch.float32, "bf16x3"),
+                                         (264, torch.float32, "bf16x5")])
+def test_simt_builds_get_no_copies(fake_card, mp, dtype, mm):
+    """float64, 'highest' and the 512-thread block (Mp > 256) keep the SIMT
+    product: sos_mega gets null pointers even where copies exist."""
+    sb = _batch(mp, mm, dtype)
+    ops = _on_card(sb.ops)
+    assert not mk.takes_tensor_cores(ops)
+    assert mk.tc_operands(ops) == (None, None)
+    _call(sb, ops)
+    args, _ = _mega_args(fake_card)
+    assert args["ws_tc"] is None and args["astk_tc"] is None
+    assert args["ws_hi"] == ops.ws[0].data_ptr()
+    assert (mk.mega_call.launches, mk.mega_call.tc_launches) == (1, 0)
+
+
+@pytest.mark.parametrize("missing", ["ws_tc", "astk_tc"])
+def test_no_fallback_without_a_copy(fake_card, missing):
+    sb = _batch(64, "bf16x3")
+    ops = dataclasses.replace(_on_card(sb.ops), **{missing: None})
+    with pytest.raises(ValueError, match=missing):
+        _call(sb, ops)
+    assert not [c for c in fake_card.calls if c[0] == "sos_mega"]
+    assert mk.mega_call.launches == mk.mega_call.tc_launches == 0
+
+
+@pytest.mark.parametrize("mm", ["bf16x3", "bf16x5"])
+@pytest.mark.parametrize("mp", [64, 8])
+def test_copies_hold_hi_and_lo_padded(mp, mm):
+    ops = _on_card(_batch(mp, mm).ops)
+    ws_tc, astk_tc = mk.tc_operands(ops)
+    for w, (hi, lo), k in ((ws_tc, ops.ws, 2 * mp), (astk_tc, ops.astk, mp)):
+        kp = -(-k // mk.TC_K_TILE) * mk.TC_K_TILE
+        assert w.dtype == torch.bfloat16 and tuple(w.shape) == (2, 4 * mp, kp)
+        assert torch.equal(w[0, :, :k].float(), hi)
+        assert torch.equal(w[1, :, :k].float(), lo)
+        assert not w[:, :, k:].any()
+    # K = 16 and 8 at the predictor's grid are padded to one k-tile
+    assert (ws_tc.shape[-1], astk_tc.shape[-1]) == ((128, 64) if mp == 64 else (32, 32))
+
+
+@pytest.mark.parametrize("mm", ["bf16x3", "highest"])
+def test_cpu_mega_call_runs_mega_plain_without_launches(mm):
+    sb = _batch(8, mm)
+    ms.reset_launches()
+    kw = dict(tol=1e-4, max_orders=6, full=False)
+    got = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, cols_per_tile=8, **kw)
+    want = mk.mega_plain(sb.pack, sb.cpar, sb.tiles, sb.ops, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sb.ops.ws_tc is None and sb.ops.astk_tc is None
+    assert (mk.mega_call.launches, mk.mega_call.tc_launches) == (0, 0)
+
+
+def test_streamed_wrappers_launch_on_the_tensors_device(fake_card):
+    sb = _batch(64, "bf16x3")
+    ops = _on_card(sb.ops)
+    pack, cpar, tiles = sb.block(0)
+    fdn, fup = ms.passI(pack, tiles, cpar, ops)
+    sdn, jn = ms.passA(pack, fdn, fup, ops)
+    ms.passB(pack, sdn, jn, cpar, ops)
+    seen = {name: current for name, _, current in fake_card.calls}
+    assert seen == {k: (pack.device,) for k in ("sos_passI", "sos_passA", "sos_passB")}
+    assert [(k.launches, k.tc_launches) for k in ms.TC_KERNELS] == [(1, 1), (1, 1)]
+
+
+def test_sweep_wrappers_launch_on_the_tensors_device(fake_card):
+    grid = GridSpec(56, 16)
+    tables = PhaseTables.from_models(grid, 0.5, aer=("hg", {"g": 0.7}),
+                                     dtype=torch.float64, device=CPU, cache=False)
+    with _as_on_the_cpu():
+        fb = FusedBatch(broadcast_scene(Scene(), 2, device=CPU), tables, grid,
+                        SolverOptions(), CPU)
+    m = fb.M
+    jn = torch.zeros((2, grid.nb_layers, 2 * m), dtype=torch.float64)
+    fs.down_sweep(jn[:, :, :m], fb.pack, fb.mu_down_safe)
+    bc = torch.zeros((2, m), dtype=torch.float64)
+    fs.up_sweep_smooth(jn[:, :, m:], fb.pack, fb.cparams, fb.mu_up_row, bc)
+    seen = {name: current for name, _, current in fake_card.calls}
+    assert seen == {"sos_down_sweep": (CPU,), "sos_up_sweep": (CPU,)}
+
+
+def test_solver_options_mm_docstring_names_each_engines_default():
+    doc = " ".join(inspect.getdoc(SolverOptions).split())
+    assert ("None is the engine's default: 'bf16x3' for the mega engine, "
+            "full-precision products ('highest') for the fused engine") in doc
+
+
+def test_solve_batch_docstring_states_the_default_engine():
+    sig = inspect.signature(solve_batch)
+    assert sig.parameters["engine"].default == "mega"
+    doc = " ".join(inspect.getdoc(solve_batch).split())
+    assert "``engine`` defaults to 'mega', where the JAX package's ``solve_batch`` " \
+           "defaults to 'reference'" in doc
