@@ -7,9 +7,10 @@ Phases, one JSON line each on stdout:
 
 1. ``card``      the card (nvidia-smi name and power limit), torch and CUDA
                  versions, the seconds the kernels took to build, ptxas's
-                 registers, spills and shared memory of each kernel (the
-                 four tensor-core kernels of passA/passI by name, with
-                 their dynamic shared memory), and sos_mega's registers and
+                 registers, spills and shared memory of each kernel (by
+                 name: the four tensor-core kernels of passA/passI, with
+                 their dynamic shared memory, and the stage kernels of
+                 passB and up_sweep_smooth), and sos_mega's registers and
                  spills per build: the SIMT builds held equal to
                  MEGA_PTXAS_SIMT, the two tensor-core builds to the
                  registers of MEGA_PTXAS_TC and at most its spills.
@@ -41,8 +42,9 @@ Phases, one JSON line each on stdout:
                  block shapes beside its plain version, the least time the
                  card could take (bound_ms) and, for the two products, one
                  torch.matmul of the same shapes; passA split into its
-                 product and its downward recurrence (torch.profiler, by
-                 kernel name) and the products' achieved TFLOP/s (bf16
+                 product and its downward recurrence, passB into its band
+                 fix, upward walk and smoothing (torch.profiler, by kernel
+                 name), and the products' achieved TFLOP/s (bf16
                  split-pass FLOPs over their time) beside their bound.
 5. ``fwc_sweep`` the 64×128 FWC sweep preset at B=4096, float32,
                  sort='predict', through solve_batch (which takes the
@@ -61,7 +63,8 @@ Phases, one JSON line each on stdout:
 6. ``resident``  the same 4096-column batch through
                  solve_batch_mega(stream=False) and (stream=True), in turns:
                  order counts and summary rows within MEGA_BATCH_LIMITS (both
-                 products on the tensor cores, in two mainloops), wall time
+                 products on the tensor cores, in two mainloops), with the
+                 counts of columns and values off, wall time
                  and launch counts of both, every float32 mega_call launch
                  on the tensor cores; 8 columns in float64, both on the SIMT
                  product (no tensor-core launch): equal order counts, within
@@ -94,7 +97,9 @@ Phases, one JSON line each on stdout:
                  fused engine; the launch counts (each sweep kernel once an
                  order, no mega kernel); 8 columns against the float64 fused
                  solve on the card; each sweep kernel at this block against
-                 its plain version, timed beside it and its bound.
+                 its plain version, timed beside it and its bound;
+                 up_sweep_smooth split into its walk, join smoothings and
+                 row pass (torch.profiler, by kernel name).
 10. ``fused_sweep`` the 4096-column sweep batch of phase ``resident`` through
                  engine='fused' beside the mega engine on the same batch:
                  col/s of both, the share of columns whose order counts
@@ -192,11 +197,12 @@ SWEEP_OPS = {"down_sweep": 8, "up_sweep_smooth": 30}
 # 8.6e-4, 2.0e-2 with the SIMT product; 0, 0, 6.3e-4, 2.0e-2 with the
 # tensor-core one).  The same limits hold the resident execution against the
 # streamed one in float32: both run their products on the tensor cores, in
-# two mainloops (wgmma in csrc/quad_mma.cuh, mma.sync in csrc/mega_mma.cuh,
-# which adds each k16 block's sum to the running one apart), so their sums
-# round differently and a last bit can move a smoothing endpoint or a ratio
-# across the 100 ppm line.  In float64 both run the same SIMT product and
-# agree to rtol 1e-12 with equal order counts.
+# two mainloops (wgmma in csrc/quad_mma.cuh, mma.sync in csrc/mega_mma.cuh),
+# which both add each k16 block's sum to the running one apart, in the same
+# term order; the rest of the two executions (epilogues, recurrences) is
+# compiled apart, so a last bit can still move a smoothing endpoint or a
+# ratio across the 100 ppm line.  In float64 both run the same SIMT product
+# and agree to rtol 1e-12 with equal order counts.
 MEGA_BATCH_LIMITS = {"n_differs_frac": 1e-3, "n_differs_max": 1.0,
                      "rows_off_frac": 3e-3, "rows_max_rel": 5e-2}
 # sos_mega's (registers, spill store bytes) per build (dtype, mm, threads)
@@ -413,7 +419,8 @@ def loops_within_limits(n_a, n_b, rows_a, rows_b, what: str, tol: float = F32_KE
     found = {"n_differs_frac": float((dn > 0).float().mean()),
              "n_differs_max": float(dn.max()),
              "rows_off_frac": float(off.float().mean()),
-             "rows_max_rel": max(rel_err(a, b) for a, b in zip(rows_a, rows_b))}
+             "rows_max_rel": max(rel_err(a, b) for a, b in zip(rows_a, rows_b)),
+             "n_differs_count": int((dn > 0).sum()), "rows_off_count": int(off.sum())}
     for k, lim in MEGA_BATCH_LIMITS.items():
         if not found[k] <= lim:
             fail(f"{what}: {k} = {found[k]:.3e} > {lim} ({found})")
@@ -554,6 +561,23 @@ def tc_kernel_label(mangled: str) -> str:
     return ("passA " if "LoadFields" in mangled else "passI ") + mode
 
 
+SPLIT_KERNELS = ("pass_b_band", "pass_b_up", "pass_b_smooth", "up_sweep_walk",
+                 "up_sweep_joins", "up_sweep_rows")
+
+
+def split_kernel_label(mangled: str):
+    """'pass_b_up float32 bf16x3' for sos::pb::pass_b_up<float, 1>, etc.;
+    None for a kernel that is no stage of passB or up_sweep_smooth."""
+    import re
+
+    m = re.search(r"(%s)I([fd])(?:Li(\d)E)?" % "|".join(SPLIT_KERNELS), mangled)
+    if m is None:
+        return None
+    name, t, mode = m.groups()
+    label = f"{name} {'float32' if t == 'f' else 'float64'}"
+    return label + (f" {['highest', 'bf16x3', 'bf16x5'][int(mode)]}" if mode else "")
+
+
 def phase_card():
     import torch
 
@@ -572,6 +596,14 @@ def phase_card():
                       cuda_build._lib_path("megastream") + ".log") if "quad_mma" in name]
     if len(tc_kernels) != 4:
         fail(f"megastream.cu built {len(tc_kernels)} tensor-core kernels, not 4")
+    # the stage kernels of passB (csrc/pass_b_split.cuh) and up_sweep_smooth
+    stages = [{"kernel": split_kernel_label(name), "registers": regs,
+               "spill_store_bytes": spill, "static_smem_bytes": smem}
+              for src in ("megastream", "fused_sweeps")
+              for name, regs, spill, smem in ptxas_entries(
+                  cuda_build._lib_path(src) + ".log") if split_kernel_label(name)]
+    if len(stages) != 16:
+        fail(f"{len(stages)} stage kernels of passB and up_sweep_smooth were built, not 16")
     mega = {mega_build(name): (regs, spill) for name, regs, spill, _ in ptxas_entries(
         cuda_build._lib_path("megakernel") + ".log")}
     if set(mega) != set(MEGA_PTXAS_SIMT) | set(MEGA_PTXAS_TC):
@@ -602,6 +634,7 @@ def phase_card():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": round(build_s, 3),
           "compiled": sorted(built), "tensor_core_kernels": tc_kernels,
+          "stage_kernels": stages,
           "sos_mega_ptxas": {f"{d} {m} {nt}": v for (d, m, nt), v in sorted(mega.items())},
           "ptxas": ptxas})
 
@@ -866,6 +899,8 @@ def phase_canonical(device):
     # csrc/quad_mma.cuh) and the downward recurrence, by kernel name in a
     # profiler trace; the products' achieved rate in bf16 split-pass FLOPs
     split = device_ms_by_kernel(calls["passA"][0], ("quad_mma", "down_scan"))
+    # passB's time split into its three kernels (csrc/pass_b_split.cuh)
+    passb_stages = device_ms_by_kernel(calls["passB"][0], SPLIT_KERNELS[:3])
     by_name = {k["name"]: k for k in kernels}
     # passI's closed form alone: the same block with a specular surface,
     # whose passI has no product (K = 0)
@@ -888,7 +923,8 @@ def phase_canonical(device):
     emit({"phase": "canonical", "grid": [grid.nb_angles, grid.nb_layers],
           "batch": B, "cols_per_block": 128, "dtype": "float32", "mm": "bf16x3",
           "metrics": metrics, "launches": launches, "f64_check": f64_check,
-          "block_shape": [L, C, Mp], "tensor_cores": tensor_cores})
+          "block_shape": [L, C, Mp], "tensor_cores": tensor_cores,
+          "passB_stages_ms": passb_stages})
     return kernels
 
 
@@ -1354,11 +1390,14 @@ def phase_fused_canonical(device, sweep_abs):
     calls = sweep_calls(fb, second_order_source(fb))
     rel, absd = sweeps_vs_plain(calls, "float32", "at the canonical block")
     times = sweep_block_times(calls, B, L, M, 4)
+    # up_sweep_smooth's time split into its three kernels
+    up_stages = device_ms_by_kernel(calls["up_sweep_smooth"][0], SPLIT_KERNELS[3:])
     emit({"phase": "fused_canonical", "grid": [M, L], "batch": B, "dtype": "float32",
           "mm": "bf16x3", "tau_star_atm": 0.044, "entered_as": "engine='mega'",
           "mega_small_ok": False, "metrics": solution_metrics(sol, wall_s=wall),
           "launches": launches, "f64_check": f64_check, "peak_memory_gb": peak_gb,
-          "block_shape": [B, L, M], "rel_err": rel, "block": times})
+          "block_shape": [B, L, M], "rel_err": rel, "block": times,
+          "up_sweep_stages_ms": up_stages})
     return [{"name": name, "route": "cuda", "source": FUSED_SOURCE,
              "replaces": REPLACES[name], "launches": launches[name],
              "max_abs_err": max(absd[name], sweep_abs[name]), "max_rel_err": rel[name],

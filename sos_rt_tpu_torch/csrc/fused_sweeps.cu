@@ -3,12 +3,13 @@
 // They replace the two Pallas TPU kernels of sos_rt_tpu/ops/pallas_sweeps.py:
 //   sos_down_sweep <- _down_kernel  (forward affine recurrence over layers
 //                                    for all mu <= 0 columns)
-//   sos_up_sweep   <- _up_kernel    (reverse recurrence from the surface BC
+//   sos_up_walk, sos_up_joins, sos_up_rows
+//                  <- _up_kernel    (reverse recurrence from the surface BC
 //                                    with the quadrature dropped at the two
 //                                    region joins, the smoothing deltas of
 //                                    the two join rows chained through the
 //                                    layers, and the mu -> 0+ smoothing walk
-//                                    on every layer row)
+//                                    on every layer row: three kernels)
 // Plain PyTorch versions of the same functions live beside their wrappers
 // in sos_rt_tpu_torch/ops/fused_sweeps.py; the CPU runs those.
 //
@@ -26,16 +27,17 @@
 // - down: one thread per (column, angle) keeps S and J_{t-1} in registers
 //   and walks the layers; the loads do not depend on the recurrence, so the
 //   unrolled loop keeps several in flight.
-// - up: one thread block per column, threads over angles.  Pass 1 walks
-//   t = L-1 .. 0 with the carry and the two join rows in registers and
-//   writes the raw field into the output buffer: the TPU kernel's (L, bt, M)
-//   VMEM scratch has no counterpart here, and a thread reads back in pass 2
-//   only what it wrote itself, from L2.  Pass 2 walks t = 0 .. L-1, adds the
-//   chained corrections and runs the smoothing walk on each row: a
-//   block-wide first-index minimum over the second differences (warp
-//   shuffles, then one value per warp through shared memory), then the
-//   blend.  Rows and the per-warp minima are double-buffered in shared
-//   memory, so a layer costs two block barriers.
+// - up: three launches, split by what depends on the layer below.
+//   up_sweep_walk: one thread per (column, angle), on down's grid, walks
+//   t = L-1 .. 0 with the carry in a register, writes the raw field into the
+//   output buffer and the two join rows, picked up by their one-hot lanes,
+//   into a (B, 2, M) buffer.  up_sweep_joins: one block per column smooths
+//   the two join rows (a block-wide first-index minimum each: warp shuffles,
+//   then one value per warp through shared memory) and leaves their deltas
+//   d1, d2 in that buffer.  up_sweep_rows: every (column, layer) row alone,
+//   one warp a row on every SM: the chained corrections from d1, d2, then
+//   the smoothing walk (a warp-wide minimum), in place.  No layer waits
+//   for another's smoothing, and no block barrier is left in a layer loop.
 // The arithmetic keeps one order of separately rounded operations (built
 // with -fmad=false) in the kernel and in the plain version, because the walk
 // compares a second difference with 1e-4: a last-bit change can move a
@@ -118,50 +120,64 @@ __device__ __forceinline__ T smooth_lane(const T* sv, const T* smu, int n, int M
   return v;
 }
 
-// One block per column, thread n = angle lane (lane 0 = mu = 0+, where
-// I = jn).  Shared memory: two rows of M values and the mu row.
+// Pass 1: thread n = angle lane of column blockIdx.x (lane 0 = mu = 0+,
+// where I = jn): the reverse recurrence into out, the join rows into
+// rows (B, 2, M).  Slot L-1 is the identity step (drop = 1, w = 0).
 template <typename T>
-__global__ void up_sweep(const T* __restrict__ jn, const T* __restrict__ pack,
-                         const T* __restrict__ cpar, const T* __restrict__ mu,
-                         const T* __restrict__ bc, T* out, int L, int M,
-                         long long jn_bs, long long jn_ls) {
+__global__ void up_sweep_walk(const T* __restrict__ jn, const T* __restrict__ pack,
+                              const T* __restrict__ mu, const T* __restrict__ bc,
+                              T* __restrict__ out, T* __restrict__ rows, int L, int M,
+                              long long jn_bs, long long jn_ls) {
+  const int b = blockIdx.x;
+  const int n = blockIdx.y * blockDim.x + threadIdx.x;
+  if (n >= M) return;
+  const bool lane0 = n == 0;
+  const T mu_n = mu[n];
+  const T inv_mu = T(1) / (mu_n == T(0) ? T(1) : mu_n);
+  const T* pk = pack + (size_t)b * L * PK_W;
+  const T* jp = jn + (size_t)b * jn_bs + n;
+  T* op = out + (size_t)b * L * M + n;
+  T row1 = T(0), row2 = T(0);
+  T s = lane0 ? jp[(size_t)(L - 1) * jn_ls] : bc[(size_t)b * M + n];
+  T j_next = T(0);
+#pragma unroll 4
+  for (int t = L - 1; t >= 0; --t) {
+    const T* p = pk + (size_t)t * PK_W;
+    const T w = p[PK_HDT_UP];
+    const T j_t = jp[(size_t)t * jn_ls];
+    const T a = exp_t((T(-2) * w) * inv_mu);
+    T c = w * inv_mu * (j_t + j_next * a);
+    if (p[PK_DROP] > T(0.5)) c = T(0);
+    s = a * s + c;
+    if (lane0) s = j_t;
+    j_next = j_t;
+    op[(size_t)t * M] = s;
+    row1 = row1 + p[PK_R1] * s;
+    row2 = row2 + p[PK_R2] * s;
+  }
+  rows[(size_t)b * 2 * M + n] = row1;
+  rows[((size_t)b * 2 + 1) * M + n] = row2;
+}
+
+// The smoothing deltas at the two joins of column blockIdx.x, thread n =
+// angle lane: d1 = smooth(row1) - row1 reaches row 2 attenuated, d2 =
+// smooth(row2 + d1 att_12) - (row2 + d1 att_12); both overwrite their rows.
+// Shared memory: two rows of M values and the mu row.
+template <typename T>
+__global__ void up_sweep_joins(const T* __restrict__ cpar, const T* __restrict__ mu,
+                               T* rows, int M) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int sred[2][MAX_WARPS];
   T* srow = reinterpret_cast<T*>(smem_raw);       // rows 0 and 1
   T* smu = srow + 2 * M;
   const int b = blockIdx.x, n = threadIdx.x, nw = blockDim.x >> 5;
-  const bool act = n < M, lane0 = n == 0;
+  const bool act = n < M;
   const T mu_n = act ? mu[n] : T(1);
   if (act) smu[n] = mu_n;
   const T inv_mu = T(1) / (mu_n == T(0) ? T(1) : mu_n);
-  const T* pk = pack + (size_t)b * L * PK_W;
-  const T* jp = jn + (size_t)b * jn_bs + n;
-  T* op = out + (size_t)b * L * M + n;
-
-  // pass 1: the reverse recurrence; slot L-1 is the identity step (drop = 1,
-  // w = 0); the rows at the two joins are picked up by their one-hot lanes
-  T row1 = T(0), row2 = T(0);
-  if (act) {
-    T s = lane0 ? jp[(size_t)(L - 1) * jn_ls] : bc[(size_t)b * M + n];
-    T j_next = T(0);
-#pragma unroll 2
-    for (int t = L - 1; t >= 0; --t) {
-      const T* p = pk + (size_t)t * PK_W;
-      const T w = p[PK_HDT_UP];
-      const T j_t = jp[(size_t)t * jn_ls];
-      const T a = exp_t((T(-2) * w) * inv_mu);
-      T c = w * inv_mu * (j_t + j_next * a);
-      if (p[PK_DROP] > T(0.5)) c = T(0);
-      s = a * s + c;
-      if (lane0) s = j_t;
-      j_next = j_t;
-      op[(size_t)t * M] = s;
-      row1 = row1 + p[PK_R1] * s;
-      row2 = row2 + p[PK_R2] * s;
-    }
-  }
-
-  // smoothing deltas at the two joins; d1 reaches row 2 attenuated
+  T* r1 = rows + (size_t)b * 2 * M;
+  T* r2 = r1 + M;
+  const T row1 = act ? r1[n] : T(0), row2 = act ? r2[n] : T(0);
   const T tau_r1 = cpar[(size_t)b * CP_W + CP_TAU_R1];
   const T tau_r2 = cpar[(size_t)b * CP_W + CP_TAU_R2];
   if (act) srow[n] = row1;
@@ -172,22 +188,83 @@ __global__ void up_sweep(const T* __restrict__ jn, const T* __restrict__ pack,
   if (act) srow[M + n] = row2c;
   __syncthreads();
   const T d2 = smooth_lane<T>(srow + M, smu, n, M, sred[1], nw) - row2c;
+  if (act) {
+    r1[n] = d1;
+    r2[n] = d2;
+  }
+}
 
-  // pass 2: chained corrections + the smoothing walk on every layer row
-  for (int t = 0; t < L; ++t) {
-    const int q = t & 1;
-    const T* p = pk + (size_t)t * PK_W;
-    const T tau_t = p[PK_TAU];
+constexpr int ROW_WARPS = 8;    // (column, layer) rows of an up_sweep_rows block
+
+// Row r = b*L + t of the up field, one warp: the chained corrections
+// ch1 d1 att1 + ch2 d2 att2 (0 on lane 0) added to the raw row, then the
+// smoothing walk (smooth_lane's rule: the first lane k in 1 .. M-3 whose
+// second difference is <= 1e-4, M-3 when none is, blends lanes 1 .. k with
+// weight mu_n / mu_{k+1}), in place.  Shared memory: a row a warp.
+template <typename T>
+__global__ void __launch_bounds__(32 * ROW_WARPS)
+up_sweep_rows(const T* __restrict__ pack, const T* __restrict__ cpar,
+              const T* __restrict__ mu, const T* __restrict__ dd, T* out, int B, int L,
+              int M) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * ROW_WARPS + warp;
+  if (r >= B * L) return;
+  const int b = r / L;
+  T* sv = reinterpret_cast<T*>(smem_raw) + (size_t)warp * M;
+  const T* p = pack + (size_t)r * PK_W;
+  const T tau_t = p[PK_TAU], ch1 = p[PK_CH1], ch2 = p[PK_CH2];
+  const T tau_r1 = cpar[(size_t)b * CP_W + CP_TAU_R1];
+  const T tau_r2 = cpar[(size_t)b * CP_W + CP_TAU_R2];
+  const T* d1 = dd + (size_t)b * 2 * M;
+  const T* d2 = d1 + M;
+  T* op = out + (size_t)r * M;
+  for (int n = lane; n < M; n += 32) {
+    const T mu_n = mu[n];
+    const T inv_mu = T(1) / (mu_n == T(0) ? T(1) : mu_n);
     const T att1 = exp_t(-max_t(tau_r1 - tau_t, T(0)) * inv_mu);
     const T att2 = exp_t(-max_t(tau_r2 - tau_t, T(0)) * inv_mu);
-    T corr = p[PK_CH1] * d1 * att1 + p[PK_CH2] * d2 * att2;
-    if (lane0) corr = T(0);
-    T* sv = srow + q * M;
-    if (act) sv[n] = op[(size_t)t * M] + corr;
-    __syncthreads();
-    const T sm = smooth_lane<T>(sv, smu, n, M, sred[q], nw);
-    if (act) op[(size_t)t * M] = sm;
+    T corr = ch1 * d1[n] * att1 + ch2 * d2[n] * att2;
+    if (n == 0) corr = T(0);
+    sv[n] = op[n] + corr;
   }
+  __syncwarp();
+  int cand = BIG_LANE;
+  for (int n = lane; n <= M - 3; n += 32) {
+    if (n >= 1 && abs_t((sv[n] - sv[n + 1]) - (sv[n + 1] - sv[n + 2])) <= T(1e-4)) {
+      cand = n;
+      break;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) cand = min(cand, __shfl_xor_sync(0xffffffffu, cand, o));
+  const int idx = min(cand, M - 3) + 1;
+  const T s0 = sv[0], si = sv[idx], mi = mu[idx];
+  for (int n = lane; n < M; n += 32) {
+    T v = sv[n];
+    if (n >= 1 && n < idx) {
+      const T w = mu[n] / mi;
+      v = (T(1) - w) * s0 + w * si;
+    }
+    op[n] = v;
+  }
+}
+
+// launch up_sweep_rows over the B*L rows
+template <typename T>
+int launch_rows(const void* pack, const void* cpar, const void* mu, const void* rows,
+                void* out, int B, int L, int M, cudaStream_t st) {
+  const size_t smem = (size_t)ROW_WARPS * M * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        up_sweep_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long nrows = (long long)B * L;
+  up_sweep_rows<T><<<(unsigned)((nrows + ROW_WARPS - 1) / ROW_WARPS), 32 * ROW_WARPS, smem,
+                     st>>>((const T*)pack, (const T*)cpar, (const T*)mu, (const T*)rows,
+                           (T*)out, B, L, M);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -217,24 +294,54 @@ int sos_down_sweep(int dtype, const void* jn, const void* pack, const void* mu,
   return (int)cudaGetLastError();
 }
 
-int sos_up_sweep(int dtype, const void* jn, const void* pack, const void* cpar,
-                 const void* mu, const void* bc, void* out, int B, int L, int M,
-                 long long jn_bs, long long jn_ls, void* stream) {
-  const int nt = ((M + 31) / 32) * 32;
-  if (B < 1 || L < 1 || M < 4 || nt > 32 * MAX_WARPS) return (int)cudaErrorInvalidValue;
+// The up sweep in three launches on one stream; rows: a (B, 2, M) buffer
+// that carries the join rows, then their deltas, from one to the next.  The
+// caller checks each one's return code.
+int sos_up_walk(int dtype, const void* jn, const void* pack, const void* mu, const void* bc,
+                void* out, void* rows, int B, int L, int M, long long jn_bs,
+                long long jn_ls, void* stream) {
+  if (B < 1 || L < 1 || M < 4) return (int)cudaErrorInvalidValue;
+  const int nt = M >= 128 ? 128 : ((M + 31) / 32) * 32;
+  const dim3 grid(B, (M + nt - 1) / nt);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    up_sweep<float><<<B, nt, 3 * M * sizeof(float), st>>>(
-        (const float*)jn, (const float*)pack, (const float*)cpar, (const float*)mu,
-        (const float*)bc, (float*)out, L, M, jn_bs, jn_ls);
+    up_sweep_walk<float><<<grid, nt, 0, st>>>(
+        (const float*)jn, (const float*)pack, (const float*)mu, (const float*)bc,
+        (float*)out, (float*)rows, L, M, jn_bs, jn_ls);
   } else if (dtype == 1) {
-    up_sweep<double><<<B, nt, 3 * M * sizeof(double), st>>>(
-        (const double*)jn, (const double*)pack, (const double*)cpar,
-        (const double*)mu, (const double*)bc, (double*)out, L, M, jn_bs, jn_ls);
+    up_sweep_walk<double><<<grid, nt, 0, st>>>(
+        (const double*)jn, (const double*)pack, (const double*)mu, (const double*)bc,
+        (double*)out, (double*)rows, L, M, jn_bs, jn_ls);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+int sos_up_joins(int dtype, const void* cpar, const void* mu, void* rows, int B, int M,
+                 void* stream) {
+  const int nt = ((M + 31) / 32) * 32;
+  if (B < 1 || M < 4 || nt > 32 * MAX_WARPS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    up_sweep_joins<float><<<B, nt, 3 * M * sizeof(float), st>>>(
+        (const float*)cpar, (const float*)mu, (float*)rows, M);
+  } else if (dtype == 1) {
+    up_sweep_joins<double><<<B, nt, 3 * M * sizeof(double), st>>>(
+        (const double*)cpar, (const double*)mu, (double*)rows, M);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int sos_up_rows(int dtype, const void* pack, const void* cpar, const void* mu,
+                const void* rows, void* out, int B, int L, int M, void* stream) {
+  if (B < 1 || L < 1 || M < 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_rows<float>(pack, cpar, mu, rows, out, B, L, M, st);
+  if (dtype == 1) return launch_rows<double>(pack, cpar, mu, rows, out, B, L, M, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -3,8 +3,10 @@
 // They replace the three Pallas TPU kernels of sos_rt_tpu/ops/megastream.py:
 //   sos_passI  <- _passI_kernel  (closed-form first order I1)
 //   sos_passA  <- _passA_kernel  (J_n source product + downward recurrence)
-//   sos_passB  <- _passB_kernel  (surface BC, band fix, upward recurrence,
-//                                  join corrections, smoothing walk)
+//   sos_passB_band, sos_passB_walk, sos_passB_smooth
+//              <- _passB_kernel  (surface BC, band fix, upward recurrence,
+//                                  join corrections, smoothing walk: three
+//                                  kernels, pass_b_split.cuh)
 // Plain PyTorch versions of the same functions live beside their wrappers
 // in sos_rt_tpu_torch/ops/megastream.py; the CPU runs those.
 //
@@ -12,9 +14,10 @@
 // angles last, so row r = t*C + c of the (L*C, Mp) matrix is one
 // (layer, column) pair.  Per-(layer, column) scalars are pack (PK_W, L, C);
 // per-column scalars cpar (CP_W, C); per-angle rows colc (7, Mp); per
-// (column, angle) I1 tiles (NI, C, Mp).  The bodies of the three passes
-// are the device functions of sos_tiles.cuh, which the resident whole-loop
-// kernel (megakernel.cu) calls too.
+// (column, angle) I1 tiles (NI, C, Mp).  The bodies of passI and passA are
+// the device functions of sos_tiles.cuh, which the resident whole-loop
+// kernel (megakernel.cu) calls too; passB's three kernels (pass_b_split.cuh)
+// do what its pass_b_walk does, split by layer dependence.
 //
 // Bounds on the H100 and what the design does about them:
 // - passA and passI are products of a fixed (4Mp, K) operator with an
@@ -34,13 +37,14 @@
 //     calls too.
 // - The downward recurrence (passA scan) and passB are memory-bound: each
 //   streams whole field planes once.  One thread per (column, angle) walks
-//   the layers with the carry in a register (passA scan); passB runs one
-//   thread block per column with threads over angles, so every load of a
-//   layer row is contiguous; the smoothing walk's first-index search is one
-//   block-wide min-reduction per layer, the band fix uses the <= 6 stencil
-//   taps of the selected variant, and the Lambertian BC is a dot over
-//   angles.
+//   the layers with the carry in a register (passA scan).  passB runs its
+//   row-parallel work (the band fix, the smoothing of every row) one warp a
+//   (layer, column) row on every SM, and only the upward carry and the two
+//   join rows' smoothing in a walk over the layers, one block a column with
+//   threads over angles, so every load of a layer row is contiguous
+//   (pass_b_split.cuh).
 // Every entry point returns cudaGetLastError(); the caller raises on non-0.
+#include "pass_b_split.cuh"
 #include "quad_mma.cuh"
 #include "sos_tiles.cuh"
 
@@ -65,16 +69,6 @@ __global__ void down_scan(const T* __restrict__ pack, const T* __restrict__ colc
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= C * Mp) return;
   down_scan_one<T>(pack, PackMap{L, C, C, 0}, colc, sdn, Mp, idx / Mp, idx % Mp);
-}
-
-// one block of round32(Mp) threads per column walks the layers upward
-template <typename T, int MODE>
-__global__ void pass_b(PassBArgs<T> a) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ int sred[32];
-  NoSink sink;
-  pass_b_walk<T, MODE>(a, blockIdx.x, threadIdx.x, (int)threadIdx.x < a.Mp,
-                       reinterpret_cast<T*>(smem_raw), sred, 0, blockDim.x >> 5, sink);
 }
 
 dim3 gemm_grid(int R, int Mp) { return dim3((Mp + BN - 1) / BN, (R + BM - 1) / BM); }
@@ -141,27 +135,68 @@ int sos_passI(int dtype, int mode, int lamb, const void* pack,
   });
 }
 
-int sos_passB(int dtype, int mode, const void* pack, const void* sdn,
-              const void* jnup, const void* cpar, const void* colc,
-              const void* tap_col, const void* tap_hi, const void* tap_lo,
-              const void* pvt, const void* bct_hi, const void* bct_lo,
-              void* fdn, void* fup, int L, int C, int Mp, int mr, int slot,
-              void* stream) {
-  const int nt = ((Mp + 31) / 32) * 32;
-  if (nt > 1024 || slot > Mp || mr < 4) return (int)cudaErrorInvalidValue;
+// passB in three launches on one stream: the band fix of every row (fdn),
+// the upward walk (fup, unsmoothed but at the join rows), the smoothing of
+// every row of fup in place.  The caller checks each one's return code.
+int sos_passB_band(int dtype, int mode, const void* pack, const void* sdn,
+                   const void* colc, const void* tap_col, const void* tap_hi,
+                   const void* tap_lo, const void* pvt, void* fdn, int L, int C, int Mp,
+                   int mr, int slot, void* stream) {
+  if (slot > Mp || slot > 32 || mr < 4 || mr > Mp) return (int)cudaErrorInvalidValue;
+  const int R = L * C;
   cudaStream_t st = (cudaStream_t)stream;
   return dispatch(dtype, mode, [&](auto tv, auto mv) {
     using T = decltype(tv);
     constexpr int MODE = decltype(mv)::value;
-    const size_t smem = sizeof(T) * pass_b_smem_elems<T, MODE>(Mp, slot);
-    PassBArgs<T> a{(const T*)pack, PackMap{L, C, C, 0}, (const T*)sdn,
-                   (const T*)jnup, (const T*)cpar, (const T*)colc,
-                   (const int*)tap_col, (const T*)tap_hi, (const T*)tap_lo,
-                   (const T*)pvt, (const T*)bct_hi, (const T*)bct_lo,
-                   (T*)fdn, (T*)fup, Mp, mr, slot};
-    pass_b<T, MODE><<<C, nt, smem, st>>>(a);
+    PassBArgs<T> a{(const T*)pack, PackMap{L, C, C, 0}, (const T*)sdn, nullptr, nullptr,
+                   (const T*)colc, (const int*)tap_col, (const T*)tap_hi, (const T*)tap_lo,
+                   (const T*)pvt, nullptr, nullptr, (T*)fdn, nullptr, Mp, mr, slot};
+    const size_t smem = sizeof(T) * pb::band_smem_elems(Mp);
+    auto kern = pb::pass_b_band<T, MODE>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kern<<<(R + pb::ROW_WARPS - 1) / pb::ROW_WARPS, 32 * pb::ROW_WARPS, smem, st>>>(a, R);
     return (int)cudaGetLastError();
   });
+}
+
+int sos_passB_walk(int dtype, int mode, const void* pack, const void* jnup,
+                   const void* cpar, const void* colc, const void* bct_hi,
+                   const void* bct_lo, const void* fdn, void* fup, int L, int C, int Mp,
+                   int mr, void* stream) {
+  const int nt = ((Mp + 31) / 32) * 32;
+  if (nt > 1024 || mr < 4 || mr > Mp) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return dispatch(dtype, mode, [&](auto tv, auto mv) {
+    using T = decltype(tv);
+    constexpr int MODE = decltype(mv)::value;
+    PassBArgs<T> a{(const T*)pack, PackMap{L, C, C, 0}, nullptr, (const T*)jnup,
+                   (const T*)cpar, (const T*)colc, nullptr, nullptr, nullptr, nullptr,
+                   (const T*)bct_hi, (const T*)bct_lo, (T*)fdn, (T*)fup, Mp, mr, 0};
+    const size_t smem = sizeof(T) * pb::up_smem_elems<T, MODE>(Mp);
+    pb::pass_b_up<T, MODE><<<C, nt, smem, st>>>(a);
+    return (int)cudaGetLastError();
+  });
+}
+
+int sos_passB_smooth(int dtype, void* fup, const void* colc, int L, int C, int Mp, int mr,
+                     void* stream) {
+  if (mr < 4 || mr > Mp) return (int)cudaErrorInvalidValue;
+  const int R = L * C;
+  const int blocks = (R + pb::ROW_WARPS - 1) / pb::ROW_WARPS;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    pb::pass_b_smooth<float><<<blocks, 32 * pb::ROW_WARPS, 0, st>>>(
+        (float*)fup, (const float*)colc, R, Mp, mr);
+  else if (dtype == 1)
+    pb::pass_b_smooth<double><<<blocks, 32 * pb::ROW_WARPS, 0, st>>>(
+        (double*)fup, (const double*)colc, R, Mp, mr);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // dynamic shared memory (bytes) of the tensor-core mainloop's CTA

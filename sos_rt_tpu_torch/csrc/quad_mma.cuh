@@ -21,10 +21,10 @@
 // Design (wgmma bf16 with float32 accumulators; a cp.async ring):
 // - A CTA computes BM = 128 rows x BN = 64 angles x the four quads: 256
 //   operator rows, q*Mp + n0 .. + 63 for q = 0..3, side by side in shared
-//   memory, so one wgmma.m64n256k16 covers the four quads of 64 angles.
-//   Two warpgroups (256 threads), 64 rows each; a thread holds 128 float32
-//   accumulators in wgmma's layout, the four quads of the same (r, n) among
-//   them.  One CTA an SM (the ring takes 156 KiB).
+//   memory, one wgmma.m64n64k16 a quad.  Two warpgroups (256 threads), 64
+//   rows each; a thread holds 128 float32 running sums in wgmma's layout,
+//   the four quads of the same (r, n) among them, and 32 more for the k16
+//   block of a quad in flight.  One CTA an SM (the ring takes 156 KiB).
 // - W comes as the bf16 copy (2, 4Mp, Kp) the host builds once a solve
 //   (hi, lo; k contiguous, K zero-padded to Kp, a multiple of BK): K-major
 //   rows, the B operand as wgmma reads it.  Each stage holds hi and lo of
@@ -41,12 +41,21 @@
 //   once for both warpgroups' use.  Either way each thread splits its rows
 //   of X into bf16 A fragments in registers (wgmma takes A from registers):
 //   x1, x2 (, x3) never reach memory.
-// - Per k16 step, into one accumulator set: hi.x1, hi.x2 (, hi.x3), then
-//   lo.x1 (, lo.x2), one wgmma each; the k-tile's wgmmas are committed as a
-//   group, the ring's next fill (copies, passI's exponentials) is issued
-//   while they run, and they are waited for before the next barrier.  Every
-//   output sums its k16 blocks in ascending k, each block in the tensor
-//   core's own order.
+// - Per k16 block and quad, as mega_mma.cuh sums it: hi.x1 (into a fresh
+//   block accumulator: scale-d 0), hi.x2 (, hi.x3), then lo.x1 (, lo.x2),
+//   one wgmma each, committed as a group; once the group is done, its sum
+//   is added to the quad's running float32 sums, rounded to nearest.  A
+//   tensor-core instruction adds its products to the accumulator it is
+//   given aligned to the largest and truncated, so summing straight into
+//   the running sum would cut every block's terms at the running sum's
+//   exponent.  The ring's next fill (copies, passI's exponentials) is
+//   issued while the k-tile's first group runs.  Every output sums its k16
+//   blocks in ascending k, each block in the tensor core's own order: the
+//   resident kernel's product gives the same bits.  The tile keeps its
+//   128 x 64 extent, as the product is held by the bytes it pulls from L2
+//   (each CTA reads its X rows and its operator rows once a k-tile): a
+//   32-angle tile, which pulls X twice as often, was slower, and so were
+//   two block sets in flight, which spill at 255 registers (PERF.md).
 // - The epilogue stages the four quads' accumulators through shared memory
 //   (the ring is free by then), then runs the epilogue functor (EpiSource,
 //   EpiFirstOrder) unchanged with consecutive threads on consecutive angles:
@@ -63,7 +72,9 @@ namespace sos {
 namespace tc {
 
 constexpr int BM = 128, BN = 64, BK = 32, STAGES = 3, NT = 256;
-constexpr int WROWS = 4 * BN;                 // operator rows of a tile (wgmma's N)
+constexpr int WROWS = 4 * BN;                 // operator rows of a tile
+constexpr int NACC = BN / 2;                  // a thread's accumulators of a quad (wgmma's N = BN)
+constexpr int GROUPS = (BK / 16) * 4;         // (k16 block, quad) groups of a k-tile
 constexpr int XS = BK + 8;                    // float32 row stride of the X tile
 constexpr int ES = BN + 8;                    // float32 row stride of the epilogue tile
 constexpr int W_PART = WROWS * BK * 2;        // bytes of hi (or lo) of a stage
@@ -106,7 +117,8 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// byte offset of row `row`, 16-byte k-chunk c of a W part tile
+// byte offset of row `row`, 16-byte k-chunk c of a W part tile (quad q
+// starts at w_at(BN q, 0))
 __device__ __forceinline__ int w_at(int row, int c) {
   return ((row >> 3) * (BK / 8) + c) * 128 + (row & 7) * 16;
 }
@@ -125,49 +137,32 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
 
 // keep the compiler from moving accesses to the accumulators across the
 // asynchronous wgmmas that write them
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+__device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 256 of the warpgroup) += a (64 x 16, registers) . B (16 x 256 at desc)
-__device__ __forceinline__ void wgmma_256(float (&d)[128], const uint32_t (&a)[4],
-                                          uint64_t desc) {
+// d (64 x 64 of the warpgroup) = a (64 x 16, registers) . B (16 x 64 at
+// desc), plus d where acc != 0
+__device__ __forceinline__ void wgmma_64(float (&d)[NACC], const uint32_t (&a)[4],
+                                         uint64_t desc, int acc) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 // Fill stage st with k-tile k0: W rows (part, q*Mp + n0 + nn) by cp.async;
@@ -230,9 +225,13 @@ quad_mma(Loader ld, Epi epi, const uint16_t* __restrict__ wb, int R, int Mp, int
   const int r0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int KT = (K + BK - 1) / BK;
 
-  float acc[128];
+  float acc[4][NACC], blk[NACC];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < NACC; ++i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q][i] = 0.0f;
+    blk[i] = 0.0f;
+  }
 
   float* sastar = reinterpret_cast<float*>(smem + ROWS_AT);
   if constexpr (!x_by_copy<Loader>()) {
@@ -252,7 +251,7 @@ quad_mma(Loader ld, Epi epi, const uint16_t* __restrict__ wb, int R, int Mp, int
     unsigned char* st = smem + (kt % STAGES) * STAGE;
     const uint32_t wst = smem_u32(st);
     const float* xs = reinterpret_cast<const float*>(st + 2 * W_PART);
-    // A fragments of the k16 steps ks: register i holds row g + 8 (i & 1),
+    // A fragments of the k16 blocks ks: register i holds row g + 8 (i & 1),
     // columns 2t, 2t + 1 (+ 8 for i >= 2), split into NX bf16 parts
     uint32_t xa[BK / 16][NX][4];
 #pragma unroll
@@ -267,42 +266,53 @@ quad_mma(Loader ld, Epi epi, const uint16_t* __restrict__ wb, int R, int Mp, int
 #pragma unroll
         for (int h = 0; h < NX; ++h) xa[ks][h][i] = pack2(p0[h], p1[h]);
       }
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    // group u: the k16 block u / 4 of quad u % 4 into blk (k-chunks 2 ks,
+    // 2 ks + 1 of hi and lo, operator rows BN q ..)
+    auto issue = [&](int u) {
+      const int ks = u / 4, q = u % 4;
+      const uint32_t at = wst + 2 * ks * LBO + w_at(BN * q, 0);
+      const uint64_t dhi = b_desc(at), dlo = b_desc(at + W_PART);
+      fence_acc(blk);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      // k-chunks 2 ks, 2 ks + 1 of hi and lo
-      const uint64_t dhi = b_desc(wst + 2 * ks * LBO);
-      const uint64_t dlo = b_desc(wst + W_PART + 2 * ks * LBO);
+      for (int x = 0; x < NX; ++x) wgmma_64(blk, xa[ks][x], dhi, x);
 #pragma unroll
-      for (int h = 0; h < NX; ++h) wgmma_256(acc, xa[ks][h], dhi);
-#pragma unroll
-      for (int h = 0; h + 1 < NX; ++h) wgmma_256(acc, xa[ks][h], dlo);
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    // fill the stage tile kt - 1 used while the tensor cores work on tile kt
+      for (int x = 0; x + 1 < NX; ++x) wgmma_64(blk, xa[ks][x], dlo, 1);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    };
+    issue(0);
+    // fill the stage tile kt - 1 used while the tensor cores work
     const int nk = kt + STAGES - 1;
     if (nk < KT)
       load_stage(ld, wb, smem + (nk % STAGES) * STAGE, sastar, R, Mp, K, Kp, r0, n0,
                  nk * BK, tid);
     cp_async_commit();
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(acc);
+#pragma unroll
+    for (int u = 0; u < GROUPS; ++u) {
+      // group u's sum into quad u % 4's running sums
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(blk);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[u % 4][i] = acc[u % 4][i] + blk[i];
+      if (u + 1 < GROUPS) issue(u + 1);
+    }
   }
   cp_async_wait<0>();
   __syncthreads();            // every warp is done with the ring
 
-  // accumulators 4j + e: row g + 8 (e >> 1), column 8j + 2t + (e & 1) of the
-  // warpgroup's 64 x 256 tile, column q BN + nn; staged as es[q][row][nn]
+  // accumulators 4j + e of quad q: row g + 8 (e >> 1), angle 8j + 2t +
+  // (e & 1) of the warpgroup's 64 x BN tile; staged as es[q][row][nn]
   float* es = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int j = 0; j < WROWS / 8; ++j)
+  for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = wr + g + 8 * h, col = 8 * j + 2 * t;
-      *reinterpret_cast<float2*>(es + ((col / BN) * BM + row) * ES + col % BN) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = wr + g + 8 * e, nn = 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(es + (q * BM + row) * ES + nn) =
+            make_float2(acc[q][4 * j + 2 * e], acc[q][4 * j + 2 * e + 1]);
+      }
   __syncthreads();
 #pragma unroll 4
   for (int i = tid; i < BM * BN; i += NT) {

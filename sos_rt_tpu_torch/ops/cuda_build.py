@@ -30,7 +30,9 @@ SIGNATURES = {
     "megastream": {
         "sos_passA": [_I, _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 3 + [_P],
         "sos_passI": [_I, _I, _I] + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 4 + [_P],
-        "sos_passB": [_I, _I] + [_P] * 13 + [_I] * 5 + [_P],
+        "sos_passB_band": [_I, _I] + [_P] * 8 + [_I] * 5 + [_P],
+        "sos_passB_walk": [_I, _I] + [_P] * 8 + [_I] * 4 + [_P],
+        "sos_passB_smooth": [_I] + [_P] * 2 + [_I] * 4 + [_P],
         "sos_tc_smem": [],
     },
     "megakernel": {
@@ -39,7 +41,9 @@ SIGNATURES = {
     },
     "fused_sweeps": {
         "sos_down_sweep": [_I] + [_P] * 4 + [_I] * 3 + [_Q, _Q, _P],
-        "sos_up_sweep": [_I] + [_P] * 6 + [_I] * 3 + [_Q, _Q, _P],
+        "sos_up_walk": [_I] + [_P] * 6 + [_I] * 3 + [_Q, _Q, _P],
+        "sos_up_joins": [_I] + [_P] * 3 + [_I] * 2 + [_P],
+        "sos_up_rows": [_I] + [_P] * 5 + [_I] * 3 + [_P],
     },
     "micro": {
         "sos_micro_ops": [_I, _I] + [_P] * 8,

@@ -39,7 +39,7 @@ from sos_rt_tpu_torch.ops import cuda_build
 from sos_rt_tpu_torch.ops.sweeps import SMOOTH_TOL
 
 BIG = 1e9
-MAX_UP_ANGLES = 1024        # one thread per angle lane in the up kernel's block
+MAX_UP_ANGLES = 1024        # one thread per angle lane in the join kernel's block
 
 # pack lane indices
 PK_TAU, PK_DROP, PK_CH1, PK_CH2, PK_R1, PK_R2, PK_HDT_DN, PK_HDT_UP = range(8)
@@ -221,9 +221,13 @@ def down_sweep(jn_down, pack, mu_down_safe):
 def up_sweep_smooth(jn_up, pack, cparams, mu_up_row, bc):
     """The upward sweep with join chaining and smoothing, I↑ (B, L, M).
     Replaces sos_rt_tpu/ops/pallas_sweeps.py::_up_kernel.  Bound by bytes
-    (one read of Jₙ, one write of I↑); one thread block per column with
-    threads over angles walks the layers twice, the second time with one
-    block-wide first-index minimum per layer (csrc/fused_sweeps.cu)."""
+    (one read of Jₙ, one write of I↑).  Three kernels (csrc/fused_sweeps.cu)
+    split it by what depends on the layer below: one thread per (column,
+    angle) walks the layers (``sos_up_walk``), one block per column smooths
+    the two join rows (``sos_up_joins``; their deltas go through a (B, 2, M)
+    buffer), and one warp per (column, layer) row adds the chained
+    corrections and smooths it (``sos_up_rows``).  One launch of the sweep
+    counts one."""
     if not jn_up.is_cuda:
         return up_sweep_smooth_plain(jn_up, pack, cparams, mu_up_row, bc)
     dt, stream = _check(jn_up, pack, cparams, mu_up_row, bc)
@@ -235,12 +239,19 @@ def up_sweep_smooth(jn_up, pack, cparams, mu_up_row, bc):
     if not 4 <= M <= MAX_UP_ANGLES:
         raise ValueError(f"the up kernel takes 4 <= M <= {MAX_UP_ANGLES} angles; got {M}")
     out = torch.empty((B, L, M), dtype=jn_up.dtype, device=jn_up.device)
+    rows = torch.empty((B, 2, M), dtype=jn_up.dtype, device=jn_up.device)
     lib = cuda_build.library("fused_sweeps")
     with torch.cuda.device(jn_up.device):
-        cuda_build.check(lib.sos_up_sweep(
-            dt, jn_up.data_ptr(), pack.data_ptr(), cparams.data_ptr(),
-            mu_up_row.data_ptr(), bc.data_ptr(), out.data_ptr(), B, L, M,
-            jn_up.stride(0), jn_up.stride(1), stream), "sos_up_sweep")
+        cuda_build.check(lib.sos_up_walk(
+            dt, jn_up.data_ptr(), pack.data_ptr(), mu_up_row.data_ptr(), bc.data_ptr(),
+            out.data_ptr(), rows.data_ptr(), B, L, M, jn_up.stride(0), jn_up.stride(1),
+            stream), "sos_up_walk")
+        cuda_build.check(lib.sos_up_joins(
+            dt, cparams.data_ptr(), mu_up_row.data_ptr(), rows.data_ptr(), B, M, stream),
+            "sos_up_joins")
+        cuda_build.check(lib.sos_up_rows(
+            dt, pack.data_ptr(), cparams.data_ptr(), mu_up_row.data_ptr(), rows.data_ptr(),
+            out.data_ptr(), B, L, M, stream), "sos_up_rows")
     up_sweep_smooth.launches += 1
     return out
 

@@ -16,17 +16,19 @@ last; Mp = pad_angles(M)), and each scattering order runs two passes:
 :func:`passI` evaluates the closed-form first order that starts the loop.
 
 Each pass is a wrapper: on a CUDA tensor it launches the hand-written
-kernel of ``csrc/megastream.cu`` (or raises) and adds one to its
+kernels of ``csrc/megastream.cu`` (or raises) and adds one to its
 ``launches`` count; on a CPU tensor it runs the plain PyTorch version
 beside it (``passI_plain``, ``passA_plain``, ``passB_plain``), which is
 also what the kernels are held against on the card.  In float32 'bf16x3'
 and 'bf16x5' the products of passI and passA run on the tensor cores
 (``csrc/quad_mma.cuh``), from bf16 copies of the split operators that
 :meth:`StreamOps.build` makes on the card; those launches also count in
-``tc_launches``.  The three bodies, as device functions, make up the
-resident whole-loop kernel (``ops/megakernel.py::mega_call``), which runs
-the order loop on the device instead of in :func:`solve_block`, with its
-own tensor-core product (``csrc/mega_mma.cuh``) from the same copies.
+``tc_launches``.  passB runs as three kernels split by what depends on the
+layer below (``csrc/pass_b_split.cuh``).  The three passes' bodies, as
+device functions (passB's as one layer walk), make up the resident
+whole-loop kernel (``ops/megakernel.py::mega_call``), which runs the order
+loop on the device instead of in :func:`solve_block`, with its own
+tensor-core product (``csrc/mega_mma.cuh``) from the same copies.
 """
 from __future__ import annotations
 
@@ -320,22 +322,32 @@ def passA(pack, fdn, fup, ops: StreamOps):
 def passB(pack, sdn, jnup, cpar, ops: StreamOps):
     """BC, band fix, upward recurrence, corrections, smoothing → (fdn,
     fup).  Replaces sos_rt_tpu/ops/megastream.py::_passB_kernel.  Bound by
-    bytes (four field planes); one block per column walks the layers with
-    threads over angles, so every row it reads is contiguous."""
+    bytes (four field planes).  Three kernels split it by what depends on
+    the layer below (csrc/pass_b_split.cuh): the band fix of every (layer,
+    column) row (``sos_passB_band``), the upward walk, one block per column
+    with threads over angles, which smooths only the join rows
+    (``sos_passB_walk``), and the smoothing of every row of fup in place
+    (``sos_passB_smooth``).  One launch of passB counts one."""
     if not sdn.is_cuda:
         return passB_plain(pack, sdn, jnup, cpar, ops)
     dt, mm, stream = _kernel_codes(ops, pack, sdn, jnup, cpar)
     L, C, Mp = sdn.shape
+    mr = ops.nb_angles
     fdn = torch.empty_like(sdn)
     fup = torch.empty_like(sdn)
     cols, t_hi, t_lo = ops.taps
     lib = cuda_build.library("megastream")
     with torch.cuda.device(pack.device):
-        cuda_build.check(lib.sos_passB(
-            dt, mm, _ptr(pack), _ptr(sdn), _ptr(jnup), _ptr(cpar), _ptr(ops.colc),
-            _ptr(cols), _ptr(t_hi), _ptr(t_lo), _ptr(ops.pvt),
-            _ptr(ops.bct[0]), _ptr(ops.bct[1]), _ptr(fdn), _ptr(fup),
-            L, C, Mp, ops.nb_angles, ops.slot, stream), "sos_passB")
+        cuda_build.check(lib.sos_passB_band(
+            dt, mm, _ptr(pack), _ptr(sdn), _ptr(ops.colc), _ptr(cols), _ptr(t_hi),
+            _ptr(t_lo), _ptr(ops.pvt), _ptr(fdn), L, C, Mp, mr, ops.slot, stream),
+            "sos_passB_band")
+        cuda_build.check(lib.sos_passB_walk(
+            dt, mm, _ptr(pack), _ptr(jnup), _ptr(cpar), _ptr(ops.colc),
+            _ptr(ops.bct[0]), _ptr(ops.bct[1]), _ptr(fdn), _ptr(fup), L, C, Mp, mr,
+            stream), "sos_passB_walk")
+        cuda_build.check(lib.sos_passB_smooth(dt, _ptr(fup), _ptr(ops.colc), L, C, Mp, mr,
+                                              stream), "sos_passB_smooth")
     passB.launches += 1
     return fdn, fup
 

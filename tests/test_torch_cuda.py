@@ -25,12 +25,13 @@ a thousand may differ by more than 1e-4.  Against the streamed kernels the
 resident kernel agrees to the bit in float64, where both run the same SIMT
 product; in float32 'bf16x3' / 'bf16x5' both run their products on the
 tensor cores, in two mainloops (wgmma in quad_mma.cuh, mma.sync in
-mega_mma.cuh), so the two are held to the same limits as mega_call against
-mega_plain (chip_smoke.py's MEGA_BATCH_LIMITS where the batch has 16
-columns or more).
-The fused engine's two sweep kernels (down_sweep, up_sweep_smooth) repeat
-their plain versions operation by operation and must equal them to the bit,
-in float32 and in float64.  So do the micro kernels (csrc/micro.cu), rep by
+mega_mma.cuh) that sum each k16 block apart in the same term order: to
+the bit on the 12-column batch, and within the limits of mega_call against
+mega_plain (chip_smoke.py's MEGA_BATCH_LIMITS) on the larger ones.
+passB's three stage kernels (pass_b_split.cuh) and the fused engine's two
+sweep kernels (down_sweep, up_sweep_smooth, the latter in three stages)
+repeat their plain versions operation by operation and must equal them to
+the bit, in float32 and in float64, at the main paths' widths.  So do the micro kernels (csrc/micro.cu), rep by
 rep, but for their three products (1e-5 of scale); the resident kernel's
 ablated builds (csrc/mega_ablate.cu) equal mega_plain with the same flags to
 1e-12 in float64, and their build of the solve equals sos_mega to the bit.
@@ -174,9 +175,9 @@ def test_resident_equals_streamed_to_the_bit(cuda, dtype, outputs):
     # 12 columns: a multiple of the resident tile (4) and one streamed block,
     # so both executions prepare the same unpadded batch (cuBLAS may sum the
     # host preparation's products in another order for another batch shape).
-    # To the bit in float64 (the same SIMT product); in float32 both products
-    # run on the tensor cores in two mainloops: equal order counts, rows
-    # within the limits of two float32 loops
+    # To the bit in float64 (the same SIMT product) and in float32 'bf16x3',
+    # where both products run on the tensor cores in two mainloops that sum
+    # each k16 block apart in the same term order
     scenes, tables = _inputs(cuda, dtype, batch=12)
     opts = SolverOptions(dtype=str(dtype).split(".")[1], max_orders=40)
     a, b = (solve_batch_mega(scenes, tables, GRID, opts, outputs=outputs,
@@ -184,10 +185,7 @@ def test_resident_equals_streamed_to_the_bit(cuda, dtype, outputs):
     assert torch.equal(a.n_orders, b.n_orders)
     assert torch.equal(a.converged, b.converged)
     field = "i_toa" if outputs == "summary" else "i_total"
-    if dtype == torch.float64:
-        assert torch.equal(getattr(a, field), getattr(b, field))
-    else:
-        assert _f32_loops_agree(getattr(a, field), getattr(b, field))
+    assert torch.equal(getattr(a, field), getattr(b, field))
 
 
 @pytest.mark.parametrize("mm", ["highest", "bf16x3"])
@@ -465,6 +463,73 @@ def test_fused_engine_on_card_matches_cpu(cuda, surface, grid):
     scale = float(want.i_total.abs().max())
     torch.testing.assert_close(got.i_total.cpu(), want.i_total, rtol=1e-9,
                                atol=1e-11 * scale)
+
+
+# ---- passB's and up_sweep_smooth's stage kernels at the main paths'
+# widths ----
+
+# passB's blocks: the canonical block's 128 columns at Mp = 504 (a few
+# layers), a ragged Mp = 80 and the sweep grid's Mp = 64
+PASSB_GRIDS = {"mp504": (501, 12, 128), "mp80": (75, 24, 16), "mp64": (64, 32, 64)}
+MODES = [(torch.float64, "highest"), (torch.float32, "highest"),
+         (torch.float32, "bf16x3"), (torch.float32, "bf16x5")]
+
+
+def _edge_joins(pack):
+    """The join rows of columns 0-2 moved to the edge cases: both on one
+    middle layer, both on the first layer walked (t = L-1), R1 at t = L-1
+    and R2 at t = 0; the other columns keep theirs."""
+    L = pack.shape[1]
+    out = pack.clone()
+    for c, (t1, t2) in enumerate([(L // 2, L // 2), (L - 1, L - 1), (L - 1, 0)]):
+        out[mk.PK_R1, :, c] = 0.0
+        out[mk.PK_R2, :, c] = 0.0
+        out[mk.PK_R1, t1, c] = 1.0
+        out[mk.PK_R2, t2, c] = 1.0
+    return out
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("dtype,mm", MODES, ids=[f"{str(d)[6:]}-{m}" for d, m in MODES])
+@pytest.mark.parametrize("grid", list(PASSB_GRIDS))
+def test_passb_stages_equal_plain(cuda, grid, dtype, mm, surface):
+    """passB's three kernels against passB_plain to the bit, on the batch's
+    join rows and on the edge cases; one launch counted a call."""
+    angles, layers, cols = PASSB_GRIDS[grid]
+    grid = GridSpec(angles, layers)
+    scenes, tables = _inputs(cuda, dtype, batch=cols, grid=grid)
+    opts = SolverOptions(surface=surface, dtype=str(dtype).split(".")[1], mm=mm)
+    sb = prepare_batch(scenes, tables, grid, opts, cols_per_block=cols, device=cuda)
+    pack, cpar, tiles = sb.block(0)
+    fdn, fup = ms.passI_plain(pack, tiles, cpar, sb.ops)
+    sdn, jn = ms.passA_plain(pack, fdn, fup, sb.ops)
+    for pk in (pack, _edge_joins(pack)):
+        ms.reset_launches()
+        got = ms.passB(pk, sdn, jn, cpar, sb.ops)
+        torch.cuda.synchronize()
+        assert ms.passB.launches == 1
+        for k, p in zip(got, ms.passB_plain(pk, sdn, jn, cpar, sb.ops)):
+            assert bool(torch.isfinite(p).all())
+            assert torch.equal(k, p), (float((k - p).abs().max()), int((k != p).sum()))
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_up_sweep_stages_equal_plain_at_the_fused_block(cuda, dtype, surface):
+    """up_sweep_smooth's three kernels at the fused_canonical block's width
+    (B = 64, M = 501; a few layers) against the plain version, to the bit."""
+    fb, jn = _second_order(cuda, dtype, GridSpec(501, 24), surface, batch=64)
+    m = 501
+    bc = fb.surface_bc(fb.narrow_down_fixes(
+        fs.down_sweep_plain(jn[:, :, :m], fb.pack, fb.mu_down_safe), jn))
+    args = (jn[:, :, m:], fb.pack, fb.cparams, fb.mu_up_row, bc)
+    fs.up_sweep_smooth.launches = 0
+    got = fs.up_sweep_smooth(*args)
+    torch.cuda.synchronize()
+    want = fs.up_sweep_smooth_plain(*args)
+    assert fs.up_sweep_smooth.launches == 1
+    assert bool(torch.isfinite(want).all())
+    assert torch.equal(got, want), (float((got - want).abs().max()), int((got != want).sum()))
 
 
 def test_sweep_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -12,8 +12,11 @@ needs; the copies at the sweep's Mp = 64 and the predictor's Mp = 8 hold hi
 and lo with K zero-padded to the k-tile; on CPU tensors ``mega_call`` still
 runs ``mega_plain`` and counts no launch.  Every kernel wrapper launches
 with the tensor's device current, so that the launch, the occupancy query
-and the shared-memory attribute act on that device; and the docstrings say
-what ``mm=None`` and the default engine mean.
+and the shared-memory attribute act on that device; passB and
+up_sweep_smooth call their three stage kernels in order on shared buffers,
+count one launch a call and raise, launching no later stage, when a stage
+returns an error; and the docstrings say what ``mm=None`` and the default
+engine mean.
 
 The kernel library, the CUDA calls and ``Tensor.is_cuda`` are faked (the
 ``fake_card`` fixture), so these run the wrappers' card branch up to the
@@ -81,14 +84,17 @@ def _on_card(ops):
 
 
 class FakeLibrary:
-    """Records each entry point's call and the devices made current then."""
+    """Records each entry point's call and the devices made current then;
+    the entry points named in ``fail`` return a CUDA error code (1)."""
 
     def __init__(self, current):
-        self.current, self.calls = current, []
+        self.current, self.calls, self.fail = current, [], set()
 
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append((name, args, tuple(self.current)))
+            if name in self.fail:
+                return 1
             return 4 if name.endswith("_blocks") else 0
         return entry
 
@@ -213,7 +219,7 @@ def test_streamed_wrappers_launch_on_the_tensors_device(fake_card):
     sdn, jn = ms.passA(pack, fdn, fup, ops)
     ms.passB(pack, sdn, jn, cpar, ops)
     seen = {name: current for name, _, current in fake_card.calls}
-    assert seen == {k: (pack.device,) for k in ("sos_passI", "sos_passA", "sos_passB")}
+    assert seen == {k: (pack.device,) for k in ("sos_passI", "sos_passA") + PASSB_STAGES}
     assert [(k.launches, k.tc_launches) for k in ms.TC_KERNELS] == [(1, 1), (1, 1)]
 
 
@@ -230,7 +236,89 @@ def test_sweep_wrappers_launch_on_the_tensors_device(fake_card):
     bc = torch.zeros((2, m), dtype=torch.float64)
     fs.up_sweep_smooth(jn[:, :, m:], fb.pack, fb.cparams, fb.mu_up_row, bc)
     seen = {name: current for name, _, current in fake_card.calls}
-    assert seen == {"sos_down_sweep": (CPU,), "sos_up_sweep": (CPU,)}
+    assert seen == {k: (CPU,) for k in ("sos_down_sweep",) + UP_STAGES}
+
+
+# the C entry points of passB's and up_sweep_smooth's stages, in launch order
+PASSB_STAGES = ("sos_passB_band", "sos_passB_walk", "sos_passB_smooth")
+UP_STAGES = ("sos_up_walk", "sos_up_joins", "sos_up_rows")
+
+
+def _passb_call(dtype=torch.float32, mm="bf16x3"):
+    """passB on the block of a prepared batch, and what it was called on."""
+    sb = _batch(64, mm, dtype)
+    ops = _on_card(sb.ops)
+    pack, cpar, tiles = sb.block(0)
+    L, C, mp = pack.shape[1], pack.shape[2], ops.mp
+    sdn = torch.zeros((L, C, mp), dtype=dtype)
+    return lambda: ms.passB(pack, sdn, sdn.clone(), cpar, ops), (L, C, mp, ops)
+
+
+def _up_call(dtype=torch.float64):
+    grid = GridSpec(56, 16)
+    tables = PhaseTables.from_models(grid, 0.5, aer=("hg", {"g": 0.7}),
+                                     dtype=dtype, device=CPU, cache=False)
+    with _as_on_the_cpu():
+        fb = FusedBatch(broadcast_scene(Scene(), 2, device=CPU), tables, grid,
+                        SolverOptions(dtype=str(dtype).split(".")[1]), CPU)
+    m = fb.M
+    jn = torch.zeros((2, grid.nb_layers, 2 * m), dtype=dtype)
+    bc = torch.zeros((2, m), dtype=dtype)
+    return (lambda: fs.up_sweep_smooth(jn[:, :, m:], fb.pack, fb.cparams, fb.mu_up_row, bc),
+            (2, grid.nb_layers, m))
+
+
+@pytest.mark.parametrize("dtype,mm", [(torch.float32, "bf16x3"), (torch.float32, "bf16x5"),
+                                      (torch.float32, "highest"), (torch.float64, "highest")])
+def test_passb_launches_its_three_stages(fake_card, dtype, mm):
+    """passB calls the band fix, the walk and the smoothing, in that order,
+    each with the tensor's device current and the block's shapes, and counts
+    one launch a call; the walk and the smoothing work on the same fup."""
+    call, (L, C, mp, ops) = _passb_call(dtype, mm)
+    fdn, fup = call()
+    calls = [(name, args) for name, args, _ in fake_card.calls]
+    assert [name for name, _ in calls] == list(PASSB_STAGES)
+    assert {cur for _, _, cur in fake_card.calls} == {(CPU,)}
+    (_, band), (_, walk), (_, smooth) = calls
+    code = ({torch.float32: 0, torch.float64: 1}[dtype], {"highest": 0, "bf16x3": 1,
+                                                           "bf16x5": 2}[mm])
+    assert band[:2] == walk[:2] == code and smooth[0] == code[0]
+    assert band[-6:-1] == (L, C, mp, ops.nb_angles, ops.slot)
+    assert walk[-5:-1] == smooth[-5:-1] == (L, C, mp, ops.nb_angles)
+    assert band[9] == walk[8] == fdn.data_ptr()          # stage 1 writes, 2 reads
+    assert walk[9] == smooth[1] == fup.data_ptr()         # stage 2 writes, 3 smooths
+    assert ms.passB.launches == 1
+
+
+def test_up_sweep_launches_its_three_stages(fake_card):
+    """up_sweep_smooth calls the walk, the join smoothings and the row pass,
+    in that order, with the tensor's device current; the three share the
+    (B, 2, M) buffer of the join rows, and one call counts one launch."""
+    call, (B, L, m) = _up_call()
+    out = call()
+    calls = [(name, args) for name, args, _ in fake_card.calls]
+    assert [name for name, _ in calls] == list(UP_STAGES)
+    assert {cur for _, _, cur in fake_card.calls} == {(CPU,)}
+    (_, walk), (_, joins), (_, rows) = calls
+    assert walk[5] == rows[5] == out.data_ptr()
+    assert walk[6] == joins[3] == rows[4]               # the join rows' buffer
+    assert walk[7:10] == rows[6:9] == (B, L, m) and joins[4:6] == (B, m)
+    assert fs.up_sweep_smooth.launches == 1
+
+
+@pytest.mark.parametrize("stage", PASSB_STAGES + UP_STAGES)
+def test_a_failing_stage_raises(fake_card, stage):
+    """A stage whose entry point returns an error raises: no later stage
+    is launched, no launch is counted, nothing falls back to the plain
+    version."""
+    fake_card.fail.add(stage)
+    stages = PASSB_STAGES if stage in PASSB_STAGES else UP_STAGES
+    call = _passb_call()[0] if stage in PASSB_STAGES else _up_call()[0]
+    with pytest.raises(cuda_build.KernelLaunchError, match=stage):
+        call()
+    names = [name for name, _, _ in fake_card.calls]
+    assert names == list(stages[:stages.index(stage) + 1])
+    assert ms.passB.launches == fs.up_sweep_smooth.launches == 0
 
 
 def test_solver_options_mm_docstring_names_each_engines_default():
