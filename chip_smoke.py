@@ -9,8 +9,9 @@ Phases, one JSON line each on stdout:
                  versions, the seconds the kernels took to build, ptxas's
                  registers, spills and shared memory of each kernel (by
                  name: the four tensor-core kernels of passA/passI, with
-                 their dynamic shared memory, and the stage kernels of
-                 passB and up_sweep_smooth), and sos_mega's registers and
+                 their dynamic shared memory, the stage kernels of passB
+                 and up_sweep_smooth, and the down sweep's float32 and
+                 float64 builds), and sos_mega's registers and
                  spills per build: the SIMT builds held equal to
                  MEGA_PTXAS_SIMT, the two tensor-core builds to the
                  registers of MEGA_PTXAS_TC and at most its spills.
@@ -26,10 +27,11 @@ Phases, one JSON line each on stdout:
                  (float32 'bf16x3', 'bf16x5', its products on the tensor
                  cores: mega_call.tc_launches) of scale; the fused engine's
                  two sweep kernels (down_sweep, up_sweep_smooth) against
-                 their plain versions on the J_n of a real second order,
-                 float64 within 1e-12 and float32 within 1e-6 of scale
-                 (0.0 is expected: both do the same separately rounded
-                 operations in the same order).
+                 their plain versions on the J_n of a real second order:
+                 down_sweep to the bit (same_bits), up_sweep_smooth float64
+                 within 1e-12 and float32 within 1e-6 of scale (0.0 is
+                 expected: both do the same separately rounded operations
+                 in the same order).
 3. ``slice_f64`` solve_batch(engine='mega') in float64 on the card against
                  the same solve on the CPU: equal order counts, rtol 1e-9.
 4. ``canonical`` the main path at full width: the ``hg`` preset on the
@@ -97,13 +99,17 @@ Phases, one JSON line each on stdout:
                  fused engine; the launch counts (each sweep kernel once an
                  order, no mega kernel); 8 columns against the float64 fused
                  solve on the card; each sweep kernel at this block against
-                 its plain version, timed beside it and its bound;
+                 its plain version (down_sweep to the bit), timed beside it,
+                 its bound and its share of the bound, down_sweep also
+                 beside a PyTorch copy of its source (copy_ms: the same
+                 bytes, no arithmetic);
                  up_sweep_smooth split into its walk, join smoothings and
                  row pass (torch.profiler, by kernel name).
 10. ``fused_sweep`` the 4096-column sweep batch of phase ``resident`` through
                  engine='fused' beside the mega engine on the same batch:
                  col/s of both, the share of columns whose order counts
-                 differ (limit 0.1%), the sweep kernels at this block.
+                 differ (limit 0.1%), the sweep kernels at this block
+                 (down_sweep to the bit), timed as in ``fused_canonical``.
 11. ``micro_ops`` the tools path: ``python -m sos_rt_tpu_torch.tools.micro_ops``
                  (all 13 patterns, K1 = 128 and K2 = 1024 reps) through its
                  main(), with its launch count; then each pattern's kernel
@@ -128,8 +134,11 @@ Phases, one JSON line each on stdout:
                  goes.
 
 Then the ``{"kernels": [...]}`` line (eight kernels; max_abs_err over both
-paths' blocks; for micro_ops and micro_pass the sums over their patterns'
-K1 calls and their pairs' calls), the nvidia-smi line and, last,
+paths' blocks; share_of_bound = bound_ms / ms for the sweep and micro
+kernels; for micro_ops and micro_pass the sums over their patterns' K1
+calls and their pairs' calls, with pass_bound_ms, the sum of the per-pass
+bounds their tools time against, and its share), the nvidia-smi line and,
+last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  Without CUDA, or without the
 package beside it, it exits non-zero at once.
@@ -183,8 +192,10 @@ ABLATE_AT_THRESHOLD = ("noconv,noi1", "noconv,nosrc")
 # a sweep kernel against its plain version, of scale: both do the same
 # separately rounded operations in the same order, so 0.0 is expected; a
 # last-bit difference would show as ~1e-7 (float32) and, where it moves a
-# smoothing blend's endpoint, as ~1e-2
+# smoothing blend's endpoint, as ~1e-2.  The kernels in SWEEP_SAME_BITS are
+# held to the bits (same_bits) instead.
 SWEEP_TOL = {"float64": 1e-12, "float32": 1e-6}
+SWEEP_SAME_BITS = ("down_sweep",)
 # columns of the float32 sweep batch whose order count may differ between
 # the fused and the mega engine (a ratio within rounding of the 100 ppm line)
 FUSED_N_DIFFERS_FRAC = 1e-3
@@ -489,7 +500,11 @@ def sweeps_vs_plain(calls, dtype: str, what: str):
             fail(f"{name} {what}: non-finite values")
         rel[name] = rel_err(got, want)
         absd[name] = float((got - want).abs().max())
-        if not rel[name] <= SWEEP_TOL[dtype]:
+        if name in SWEEP_SAME_BITS:
+            if not same_bits(got, want):
+                fail(f"{name} {what}: not equal to its plain version to the bit "
+                     f"(rel err {rel[name]:.3e}, {int((got != want).sum())} values)")
+        elif not rel[name] <= SWEEP_TOL[dtype]:
             fail(f"{name} {what}: rel err {rel[name]:.3e} > {SWEEP_TOL[dtype]}")
     return rel, absd
 
@@ -508,13 +523,22 @@ def sweep_bound_ms(name: str, B: int, L: int, M: int, itemsize: int):
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def sweep_block_times(calls, B: int, L: int, M: int, itemsize: int, reps: int = 5):
-    """{name: {ms, plain_ms, bound_ms, bound_by}} at this block."""
+def sweep_block_times(calls, B: int, L: int, M: int, itemsize: int, jn_down,
+                      reps: int = 5):
+    """{name: {ms, plain_ms, bound_ms, bound_by, share_of_bound}} at this
+    block; down_sweep also has copy_ms: one PyTorch copy of its source
+    ``jn_down`` into a (B, L, M) field, the same bytes read and written
+    with no arithmetic, what the card streams with this layout."""
+    import torch
+
     out = {}
     for name, (kern, plain) in calls.items():
         bms, by = sweep_bound_ms(name, B, L, M, itemsize)
-        out[name] = {"ms": timed(kern, reps), "plain_ms": timed(plain, 1),
-                     "bound_ms": bms, "bound_by": by}
+        ms = timed(kern, reps)
+        out[name] = {"ms": ms, "plain_ms": timed(plain, 1), "bound_ms": bms,
+                     "bound_by": by, "share_of_bound": bms / ms}
+    field = torch.empty((B, L, M), dtype=jn_down.dtype, device=jn_down.device)
+    out["down_sweep"]["copy_ms"] = timed(lambda: field.copy_(jn_down), reps)
     return out
 
 
@@ -561,6 +585,16 @@ def tc_kernel_label(mangled: str) -> str:
     return ("passA " if "LoadFields" in mangled else "passI ") + mode
 
 
+def down_kernel_label(mangled: str):
+    """'float32' for down_sweep<float>, None for another kernel."""
+    import re
+
+    m = re.search(r"down_sweepI([fd])E", mangled)
+    if m is None:
+        return None
+    return "float32" if m.group(1) == "f" else "float64"
+
+
 SPLIT_KERNELS = ("pass_b_band", "pass_b_up", "pass_b_smooth", "up_sweep_walk",
                  "up_sweep_joins", "up_sweep_rows")
 
@@ -604,6 +638,13 @@ def phase_card():
                   cuda_build._lib_path(src) + ".log") if split_kernel_label(name)]
     if len(stages) != 16:
         fail(f"{len(stages)} stage kernels of passB and up_sweep_smooth were built, not 16")
+    # the down sweep's two builds (float32, float64)
+    down = [{"kernel": down_kernel_label(name), "registers": regs,
+             "spill_store_bytes": spill}
+            for name, regs, spill, _ in ptxas_entries(
+                cuda_build._lib_path("fused_sweeps") + ".log") if down_kernel_label(name)]
+    if len(down) != 2:
+        fail(f"fused_sweeps.cu built {len(down)} down-sweep kernels, not 2")
     mega = {mega_build(name): (regs, spill) for name, regs, spill, _ in ptxas_entries(
         cuda_build._lib_path("megakernel") + ".log")}
     if set(mega) != set(MEGA_PTXAS_SIMT) | set(MEGA_PTXAS_TC):
@@ -634,7 +675,7 @@ def phase_card():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": round(build_s, 3),
           "compiled": sorted(built), "tensor_core_kernels": tc_kernels,
-          "stage_kernels": stages,
+          "stage_kernels": stages, "down_sweep_kernels": down,
           "sos_mega_ptxas": {f"{d} {m} {nt}": v for (d, m, nt), v in sorted(mega.items())},
           "ptxas": ptxas})
 
@@ -1387,9 +1428,10 @@ def phase_fused_canonical(device, sweep_abs):
     # each sweep kernel at this run's block (the whole batch)
     fb = FusedBatch(scenes, tables[torch.float32], grid, opts, device)
     L, M = grid.nb_layers, grid.nb_angles
-    calls = sweep_calls(fb, second_order_source(fb))
+    jn = second_order_source(fb)
+    calls = sweep_calls(fb, jn)
     rel, absd = sweeps_vs_plain(calls, "float32", "at the canonical block")
-    times = sweep_block_times(calls, B, L, M, 4)
+    times = sweep_block_times(calls, B, L, M, 4, jn[:, :, :M])
     # up_sweep_smooth's time split into its three kernels
     up_stages = device_ms_by_kernel(calls["up_sweep_smooth"][0], SPLIT_KERNELS[3:])
     emit({"phase": "fused_canonical", "grid": [M, L], "batch": B, "dtype": "float32",
@@ -1442,7 +1484,8 @@ def phase_fused_sweep(device):
 
     fb = FusedBatch(scenes, t32, preset.grid, preset.opts, device)
     L, M = preset.grid.nb_layers, preset.grid.nb_angles
-    calls = sweep_calls(fb, second_order_source(fb))
+    jn = second_order_source(fb)
+    calls = sweep_calls(fb, jn)
     rel, absd = sweeps_vs_plain(calls, "float32", "at the sweep block")
     emit({"phase": "fused_sweep", "grid": [M, L], "batch": B,
           "fused": {"wall_s": wall, "col_per_s": B / wall, "launches": launches},
@@ -1450,7 +1493,7 @@ def phase_fused_sweep(device):
                    "metrics": solution_metrics(mega, wall_s=mega_wall)},
           "n_differs_frac": differs, "n_differs_limit": FUSED_N_DIFFERS_FRAC,
           "p50_rel_to_mega": p50, "block_shape": [B, L, M], "rel_err": rel,
-          "block": sweep_block_times(calls, B, L, M, 4)})
+          "block": sweep_block_times(calls, B, L, M, 4, jn[:, :, :M])})
     return absd
 
 
@@ -1563,13 +1606,17 @@ def phase_micro_ops(device):
                                 "finite_at_k1": finite[pat]}
                           for pat in micro.PATTERNS}})
     total_bound = sum(b for b, _ in bounds.values())
+    ms_total = sum(per[p]["k1_ms"] for p in micro.PATTERNS)
+    # the bound the tool times each pass against: its bytes through shared
+    # memory (or its operations), K1 passes a call
+    pass_bound = sum(per[p]["bound_us"] for p in micro.PATTERNS) * micro.K1 / 1e3
     return {"name": "micro_ops", "route": "cuda", "source": MICRO_SOURCE,
             "replaces": REPLACES["micro_ops"], "launches": launches,
             "max_abs_err": worst_abs, "max_rel_err": max(check.values()),
-            "ms": sum(per[p]["k1_ms"] for p in micro.PATTERNS),
-            "plain_ms": sum(plain_ms.values()), "bound_ms": total_bound,
+            "ms": ms_total, "plain_ms": sum(plain_ms.values()), "bound_ms": total_bound,
             "bound_by": "operations" if by_ops >= total_bound / 2 else "bytes",
-            "library_ms": None}
+            "share_of_bound": total_bound / ms_total, "pass_bound_ms": pass_bound,
+            "pass_bound_share": pass_bound / ms_total, "library_ms": None}
 
 
 def phase_micro_pass(device):
@@ -1599,12 +1646,16 @@ def phase_micro_pass(device):
     t_ops = micro.K * 2 * field / PEAK_OPS["float32"] * 1e3
     emit({"phase": "micro_pass", "field": [micro.L, micro.C, micro.M2], "passes": micro.K,
           "tool_lines": lines, "launches": launches, "pairs": res})
+    ms_total, bound = sum(r["ms"] for r in res), len(res) * max(t_bytes, t_ops)
+    # the tool's own bound: each pass's bytes through shared memory
+    pass_bound = sum(r["bound_us"] for r in res) * micro.K / 1e3
     return {"name": "micro_pass", "route": "cuda", "source": MICRO_SOURCE,
             "replaces": REPLACES["micro_pass"], "launches": launches,
             "max_abs_err": 0.0, "max_rel_err": 0.0,
-            "ms": sum(r["ms"] for r in res), "plain_ms": sum(r["plain_ms"] for r in res),
-            "bound_ms": len(res) * max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": None}
+            "ms": ms_total, "plain_ms": sum(r["plain_ms"] for r in res),
+            "bound_ms": bound, "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "share_of_bound": bound / ms_total, "pass_bound_ms": pass_bound,
+            "pass_bound_share": pass_bound / ms_total, "library_ms": None}
 
 
 def phase_ablate(device):

@@ -25,19 +25,34 @@
 // field per call (plus pack), against a few operations and one to three
 // exponentials per value.  What the design does about it:
 // - down: one thread per (column, angle) keeps S and J_{t-1} in registers
-//   and walks the layers; the loads do not depend on the recurrence, so the
-//   unrolled loop keeps several in flight.
+//   and walks the layers in order.  Nothing but the walk is serial, so the
+//   loads run ahead of it: a ring of DOWN_RING = 32 registers holds J_t ..
+//   J_{t+31}, and the slot J_t leaves is refilled with J_{t+32} at once, so
+//   32 loads stay in flight per thread.  Why that many: at the
+//   fused_canonical block (B = 64, L = 800, M = 501) the card holds
+//   64 x 501 = 32,064 walkers, 7.6 warps an SM, and needs about
+//   3.35 TB/s x 0.7 us = 2.3 MB, 18 KB an SM, in flight; a loop unrolled 4
+//   deep keeps ~4 KB an SM (29% of the bytes bound there on an H100 80GB
+//   HBM3 at 700 W; rings of 8 and 16 were slower than 32 at both main-path
+//   blocks, PERF.md).  The w of a layer is the same for the whole column:
+//   lane u of a warp loads the w of layer t0 + u once a chunk of 32 layers
+//   (the next chunk's while the walk runs this one) and the walk takes it
+//   by a shuffle.  Blocks of DOWN_THREADS = 256 angles, whole warps, fewer
+//   when M is smaller.  What is left is the layout: a row of 501 floats is
+//   only 4-byte aligned, so a warp's loads and stores straddle two 128-byte
+//   lines and end in part sectors.
 // - up: three launches, split by what depends on the layer below.
-//   up_sweep_walk: one thread per (column, angle), on down's grid, walks
-//   t = L-1 .. 0 with the carry in a register, writes the raw field into the
-//   output buffer and the two join rows, picked up by their one-hot lanes,
-//   into a (B, 2, M) buffer.  up_sweep_joins: one block per column smooths
-//   the two join rows (a block-wide first-index minimum each: warp shuffles,
-//   then one value per warp through shared memory) and leaves their deltas
-//   d1, d2 in that buffer.  up_sweep_rows: every (column, layer) row alone,
-//   one warp a row on every SM: the chained corrections from d1, d2, then
-//   the smoothing walk (a warp-wide minimum), in place.  No layer waits
-//   for another's smoothing, and no block barrier is left in a layer loop.
+//   up_sweep_walk: one thread per (column, angle), on a grid like down's,
+//   walks t = L-1 .. 0 with the carry in a register, writes the raw field
+//   into the output buffer and the two join rows, picked up by their
+//   one-hot lanes, into a (B, 2, M) buffer.  up_sweep_joins: one block per
+//   column smooths the two join rows (a block-wide first-index minimum
+//   each: warp shuffles, then one value per warp through shared memory) and
+//   leaves their deltas d1, d2 in that buffer.  up_sweep_rows: every
+//   (column, layer) row alone, one warp a row on every SM: the chained
+//   corrections from d1, d2, then the smoothing walk (a warp-wide minimum),
+//   in place.  No layer waits for another's smoothing, and no block barrier
+//   is left in a layer loop.
 // The arithmetic keeps one order of separately rounded operations (built
 // with -fmad=false) in the kernel and in the plain version, because the walk
 // compares a second difference with 1e-4: a last-bit change can move a
@@ -51,6 +66,8 @@ enum { PK_TAU = 0, PK_DROP, PK_CH1, PK_CH2, PK_R1, PK_R2, PK_HDT_DN, PK_HDT_UP, 
 enum { CP_TAU_R1 = 0, CP_TAU_R2 = 1, CP_W = 8 };
 constexpr int BIG_LANE = 1 << 30;
 constexpr int MAX_WARPS = 32;
+constexpr int DOWN_RING = 32;     // J loads in flight per down-sweep thread
+constexpr int DOWN_THREADS = 256; // a down-sweep block's angles, at most
 
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
@@ -59,29 +76,65 @@ __device__ __forceinline__ double abs_t(double x) { return fabs(x); }
 __device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_t(double a, double b) { return fmax(a, b); }
 
+// D layers t0 .. t0+D-1 of the down walk (only those below L when TAIL).
+// Layer t takes J_t from ring slot t mod D (t0 is a multiple of D) and
+// refills it with J_{t+D}; w_cur holds the chunk's w, lane u layer t0 + u.
+// jq points at J_{t0+D}, oq at the output of layer t0; both move on.
+template <typename T, int D, bool TAIL>
+__device__ __forceinline__ void down_chunk(T (&ring)[D], T& s, T& j_prev, T w_cur, int t0,
+                                           int L, const T*& jq, long long jn_ls, T*& oq,
+                                           int M, T inv_mu, bool act) {
+#pragma unroll
+  for (int u = 0; u < D; ++u) {
+    if (TAIL && t0 + u >= L) break;          // uniform over the block
+    const T w = __shfl_sync(0xffffffffu, w_cur, u);
+    const T j_t = ring[u];
+    if (t0 + u + D < L) ring[u] = *jq;
+    jq += jn_ls;
+    const T a = exp_t((T(2) * w) * inv_mu);
+    s = a * s + w * (j_prev * a + j_t);
+    j_prev = j_t;
+    if (act) *oq = -s * inv_mu;
+    oq += M;
+  }
+}
+
 // S_t = a S_{t-1} + w (J_{t-1} a + J_t), a = exp(2 w / mu), I_t = -S_t / mu
 // for column blockIdx.x and angle n; w = pack[.., PK_HDT_DN] (0 at t = 0).
+// The same operations in the same order as down_sweep_plain: the ring only
+// moves the loads earlier.  Lanes past M read angle M-1 (the shuffles need
+// the whole warp) and store nothing.
 template <typename T>
 __global__ void down_sweep(const T* __restrict__ jn, const T* __restrict__ pack,
                            const T* __restrict__ mu, T* __restrict__ out, int L,
                            int M, long long jn_bs, long long jn_ls) {
+  constexpr int D = DOWN_RING;
   const int b = blockIdx.x;
   const int n = blockIdx.y * blockDim.x + threadIdx.x;
-  if (n >= M) return;
-  const T inv_mu = T(1) / mu[n];
-  const T* jp = jn + (size_t)b * jn_bs + n;
-  const T* pk = pack + (size_t)b * L * PK_W + PK_HDT_DN;
-  T* op = out + (size_t)b * L * M + n;
-  T s = T(0), j_prev = T(0);
-#pragma unroll 4
-  for (int t = 0; t < L; ++t) {
-    const T w = pk[(size_t)t * PK_W];
-    const T j_t = jp[(size_t)t * jn_ls];
-    const T a = exp_t((T(2) * w) * inv_mu);
-    s = a * s + w * (j_prev * a + j_t);
-    j_prev = j_t;
-    op[(size_t)t * M] = -s * inv_mu;
+  const int lane = threadIdx.x & 31;
+  const bool act = n < M;
+  const int nc = act ? n : M - 1;
+  const T inv_mu = T(1) / mu[nc];
+  const T* jq = jn + (size_t)b * jn_bs + nc;
+  const T* wp = pack + (size_t)b * L * PK_W + PK_HDT_DN;
+  T* oq = out + (size_t)b * L * M + nc;
+  T ring[D];
+#pragma unroll
+  for (int u = 0; u < D; ++u) {
+    ring[u] = u < L ? *jq : T(0);
+    jq += jn_ls;
   }
+  T w_cur = lane < D && lane < L ? wp[(size_t)lane * PK_W] : T(0);
+  T s = T(0), j_prev = T(0);
+  int t0 = 0;
+  for (; t0 + D <= L; t0 += D) {
+    const int tn = t0 + D + lane;
+    const T w_next = lane < D && tn < L ? wp[(size_t)tn * PK_W] : T(0);
+    down_chunk<T, D, false>(ring, s, j_prev, w_cur, t0, L, jq, jn_ls, oq, M, inv_mu, act);
+    w_cur = w_next;
+  }
+  if (t0 < L)
+    down_chunk<T, D, true>(ring, s, j_prev, w_cur, t0, L, jq, jn_ls, oq, M, inv_mu, act);
 }
 
 // min of v over the block: warp shuffles, then one value per warp through
@@ -277,7 +330,7 @@ int sos_down_sweep(int dtype, const void* jn, const void* pack, const void* mu,
                    void* out, int B, int L, int M, long long jn_bs,
                    long long jn_ls, void* stream) {
   if (B < 1 || L < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  const int nt = M >= 128 ? 128 : ((M + 31) / 32) * 32;
+  const int nt = M >= DOWN_THREADS ? DOWN_THREADS : ((M + 31) / 32) * 32;
   const dim3 grid(B, (M + nt - 1) / nt);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {

@@ -199,7 +199,8 @@ def down_sweep(jn_down, pack, mu_down_safe):
     """The downward sweep I↓ (B, L, M) of one order.  Replaces
     sos_rt_tpu/ops/pallas_sweeps.py::_down_kernel.  Bound by bytes (one
     read of Jₙ, one write of I↓); one thread per (column, angle) walks the
-    layers with the carry in registers (csrc/fused_sweeps.cu)."""
+    layers with the carry in registers, a ring of 32 registers keeping the
+    next layers' loads in flight (csrc/fused_sweeps.cu)."""
     if not jn_down.is_cuda:
         return down_sweep_plain(jn_down, pack, mu_down_safe)
     dt, stream = _check(jn_down, pack, mu_down_safe)

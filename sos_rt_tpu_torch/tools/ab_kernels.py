@@ -1,7 +1,8 @@
 """Kernels or solves of two checkouts on the same inputs, in turns, on one card.
 
 usage: python -m sos_rt_tpu_torch.tools.ab_kernels OTHER
-           [--what mega|stream|sweeps|canonical|fused_canonical] [--rounds N]
+           [--what mega|stream|sweeps|sweeps_fwc|canonical|fused_canonical|fused_sweep]
+           [--rounds N]
 
 OTHER is the root of another checkout of this repository (an earlier
 commit, unpacked with ``git archive``; it needs its ``chip_smoke.py`` and
@@ -18,9 +19,15 @@ kernels, kernel wrappers or a whole solve on inputs made from
              bf16x3, Lambertian);
 - ``sweeps`` down_sweep and up_sweep_smooth at the block of phase
              ``fused_canonical`` (501×800, τ*_atm = 0.044, B=64, float32);
+- ``sweeps_fwc`` the same two at the block of phase ``fused_sweep`` (the
+             4096-column 64×128 sweep batch of ``chip_smoke.fwc_batch``,
+             float32);
 - ``canonical``, ``fused_canonical``  the whole solve of that phase
              (``solve_batch(engine="mega", outputs="summary")``, B=256 in
-             two 128-column blocks, or B=64 through the fused engine).
+             two 128-column blocks, or B=64 through the fused engine);
+- ``fused_sweep`` the whole fused solve of phase ``fused_sweep`` (the
+             4096-column sweep batch, ``engine="fused"``, full outputs,
+             ``sort="predict"``).
 
 A kernel's time is the least of three timings of three launches each
 (CUDA events); a solve's is the least of three walls on the host clock,
@@ -101,6 +108,13 @@ tables = PhaseTables.from_models(preset.grid, 0.5, atm=preset.atm, aer=preset.ae
 fb = FusedBatch(scenes, tables, preset.grid, opts, dev)
 calls = {k: kern for k, (kern, _) in cs.sweep_calls(fb, cs.second_order_source(fb)).items()}
 """,
+    "sweeps_fwc": r"""
+from sos_rt_tpu_torch.fused import FusedBatch
+
+preset, scenes, tables = cs.fwc_batch(dev)
+fb = FusedBatch(scenes, tables[torch.float32], preset.grid, preset.opts, dev)
+calls = {k: kern for k, (kern, _) in cs.sweep_calls(fb, cs.second_order_source(fb)).items()}
+""",
 }
 
 CELL = r"""
@@ -119,7 +133,8 @@ tables = PhaseTables.from_models(preset.grid, 0.5, atm=preset.atm, aer=preset.ae
                                  dtype=torch.float32, device=dev)
 solve = lambda: solve_batch(scenes, tables, preset.grid, opts, engine="mega",
                             outputs="summary", device=dev, **KW)
-
+"""
+WALL = r"""
 
 def wall():
     torch.cuda.synchronize()
@@ -133,8 +148,17 @@ best = lambda fn: min(fn() for _ in range(3))
 solve()
 calls = {"solve": wall}
 """
-TURNS["canonical"] = "import time\nB, TAU_ATM, KW = 256, None, dict(cols_per_block=128)\n" + CELL
-TURNS["fused_canonical"] = "import time\nB, TAU_ATM, KW = 64, 0.044, {}\n" + CELL
+TURNS["canonical"] = ("import time\nB, TAU_ATM, KW = 256, None, dict(cols_per_block=128)\n"
+                      + CELL + WALL)
+TURNS["fused_canonical"] = "import time\nB, TAU_ATM, KW = 64, 0.044, {}\n" + CELL + WALL
+TURNS["fused_sweep"] = r"""
+import time
+from sos_rt_tpu_torch.parallel import solve_batch
+
+preset, scenes, tables = cs.fwc_batch(dev)
+solve = lambda: solve_batch(scenes, tables[torch.float32], preset.grid, preset.opts,
+                            engine="fused", sort="predict", device=dev)
+""" + WALL
 
 REPORT = r"""
 out = {name: best(fn) for name, fn in calls.items()}

@@ -418,7 +418,9 @@ def _second_order(device, dtype, grid, surface="lambertian", batch=3):
     return fb, fb.source(fb.i1[:, :, :m], fb.i1[:, :, m:])
 
 
-@pytest.mark.parametrize("layers", [30, 64])
+# layers below the down sweep's ring depth (32 by its plan), a whole number
+# of rings and one ring and a part; odd angle counts leave a ragged tile
+@pytest.mark.parametrize("layers", [9, 30, 64, 77])
 @pytest.mark.parametrize("angles", [56, 64, 201, 501])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_sweep_kernels_match_plain(cuda, dtype, angles, layers):
@@ -431,6 +433,7 @@ def test_sweep_kernels_match_plain(cuda, dtype, angles, layers):
     want = fs.down_sweep_plain(jn[:, :, :m], fb.pack, fb.mu_down_safe)
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, want), float((got - want).abs().max())
+    down = got
     bc = fb.surface_bc(fb.narrow_down_fixes(want.clone(), jn))
     args = (jn[:, :, m:], fb.pack, fb.cparams, fb.mu_up_row, bc)
     got = fs.up_sweep_smooth(*args)
@@ -443,6 +446,50 @@ def test_sweep_kernels_match_plain(cuda, dtype, angles, layers):
     # the same source made contiguous gives the same bits
     again = fs.up_sweep_smooth(jn[:, :, m:].contiguous(), *args[1:])
     assert torch.equal(again, got)
+    again = fs.down_sweep(jn[:, :, :m].contiguous(), fb.pack, fb.mu_down_safe)
+    assert torch.equal(again, down)
+
+
+# (B, L, M): one layer, layers below, at and past the 32-layer ring, one
+# column, one angle, odd angle counts whose last block is ragged, a row
+# wider than one 256-angle block
+DOWN_SHAPES = [(1, 1, 1), (1, 1, 501), (3, 5, 33), (1, 8, 95), (2, 37, 501),
+               (4, 100, 64), (1, 129, 7), (2, 40, 1500)]
+
+
+@pytest.mark.parametrize("shape", DOWN_SHAPES, ids=["x".join(map(str, s)) for s in DOWN_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_down_sweep_edge_shapes_match_plain(cuda, dtype, shape):
+    """sos_down_sweep equals down_sweep_plain to the bit at the design's
+    edges, on the strided half-view of a (B, L, 2M) source and on its
+    contiguous copy, one launch a call."""
+    from torch_sweep_cases import down_inputs
+
+    jn, pack, mu = down_inputs(*shape, dtype, cuda)
+    want = fs.down_sweep_plain(jn, pack, mu)
+    assert bool(torch.isfinite(want).all())
+    fs.down_sweep.launches = 0
+    for src in (jn, jn.contiguous()):
+        got = fs.down_sweep(src, pack, mu)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), float((got - want).abs().max())
+    assert fs.down_sweep.launches == 2
+
+
+def test_down_sweep_at_the_fused_canonical_block(cuda):
+    """The fused_canonical block itself: B = 64, L = 800, M = 501, float32,
+    on the J_n of a real second order, to the bit."""
+    fb, jn = _second_order(cuda, torch.float32, GridSpec(501, 800), batch=64)
+    m = 501
+    fs.down_sweep.launches = 0
+    got = fs.down_sweep(jn[:, :, :m], fb.pack, fb.mu_down_safe)
+    torch.cuda.synchronize()
+    want = fs.down_sweep_plain(jn[:, :, :m], fb.pack, fb.mu_down_safe)
+    assert fs.down_sweep.launches == 1
+    assert bool(torch.isfinite(want).all())
+    assert torch.equal(got, want), (float((got - want).abs().max()), int((got != want).sum()))
+    assert torch.equal(fs.down_sweep(jn[:, :, :m].contiguous(), fb.pack, fb.mu_down_safe),
+                       got)
 
 
 @pytest.mark.parametrize("grid", [GRID, GridSpec(51, 24, spacing="gauss")],

@@ -23,6 +23,7 @@ from sos_rt_tpu_torch.ops import fused_sweeps as fs
 from sos_rt_tpu_torch.ops import sweeps as sw
 
 from torch_cases import assert_close_scaled, jax_scenes, jax_tables, port_inputs
+from torch_sweep_cases import down_inputs
 
 # name → (grid, surface); L is a multiple of 8, as the Pallas kernels need
 CASES = {"uniform_lambertian": (JGrid(51, 32), "lambertian"),
@@ -67,6 +68,53 @@ def test_down_sweep_plain_matches_pallas_interpret(order2):
                                  block_b=3, interpret=True)
     assert np.isfinite(np.asarray(want)).all()
     assert_close_scaled(got.numpy(), want, rtol=1e-12, atol_scale=1e-14)
+
+
+# (B, L, M) edge shapes of the down sweep: one column, odd M, one layer and
+# layer counts below and off the kernel's 32-layer ring; the Pallas kernel
+# takes L a multiple of 8 only, a float64 numpy loop the rest
+DOWN_PALLAS_EDGES = [(1, 8, 51), (2, 16, 33), (1, 40, 1)]
+DOWN_LOOP_EDGES = [(1, 1, 51), (1, 9, 33), (2, 30, 51), (3, 1, 1)]
+
+
+def _down_loop(jn, pack, mu):
+    """The downward recurrence written out in float64 numpy, one layer at a
+    time over every (column, angle)."""
+    B, L, M = jn.shape
+    s = np.zeros((B, M))
+    j_prev = np.zeros((B, M))
+    out = np.empty((B, L, M))
+    for t in range(L):
+        w = pack[:, t, fs.PK_HDT_DN][:, None]
+        a = np.exp(2.0 * w / mu[None, :])
+        s = a * s + w * (j_prev * a + jn[:, t])
+        j_prev = jn[:, t]
+        out[:, t] = -s / mu[None, :]
+    return out
+
+
+def _down_edge_inputs(shape):
+    return down_inputs(*shape, torch.float64, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("shape", DOWN_PALLAS_EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_down_sweep_plain_at_edge_shapes_matches_pallas_interpret(shape):
+    jn, pack, mu = _down_edge_inputs(shape)
+    got = fs.down_sweep_plain(jn, pack, mu)
+    want = jps.down_sweep_pallas(_j(jn), _j(pack), _j(mu), block_b=shape[0], interpret=True)
+    assert np.isfinite(np.asarray(want)).all()
+    assert_close_scaled(got.numpy(), want, rtol=1e-12, atol_scale=1e-14)
+
+
+@pytest.mark.parametrize("shape", DOWN_LOOP_EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_down_sweep_plain_at_edge_shapes_matches_a_numpy_loop(shape):
+    jn, pack, mu = _down_edge_inputs(shape)
+    got = fs.down_sweep_plain(jn, pack, mu)
+    assert got.shape == shape and bool(torch.isfinite(got).all())
+    assert_close_scaled(got.numpy(), _down_loop(jn.numpy(), pack.numpy(), mu.numpy()),
+                        rtol=1e-12, atol_scale=1e-14)
+    # the strided half-view and its contiguous copy give the same bits
+    assert torch.equal(fs.down_sweep_plain(jn.contiguous(), pack, mu), got)
 
 
 def test_up_sweep_plain_matches_pallas_interpret(order2):

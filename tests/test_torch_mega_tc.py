@@ -239,6 +239,41 @@ def test_sweep_wrappers_launch_on_the_tensors_device(fake_card):
     assert seen == {k: (CPU,) for k in ("sos_down_sweep",) + UP_STAGES}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_down_sweep_hands_the_half_view_to_the_kernel(fake_card, dtype):
+    """The wrapper passes the strided half-view of the (B, L, 2M) source as
+    it stands: its pointer and its column and layer strides, no copy."""
+    B, L, M = 2, 16, 56
+    jn = torch.zeros((B, L, 2 * M), dtype=dtype)
+    pack = torch.zeros((B, L, fs.PK_W), dtype=dtype)
+    mu = -torch.ones(M, dtype=dtype)
+    out = fs.down_sweep(jn[:, :, :M], pack, mu)
+    (name, args, current), = fake_card.calls
+    assert name == "sos_down_sweep" and current == (CPU,)
+    code = {torch.float32: 0, torch.float64: 1}[dtype]
+    assert args[:5] == (code, jn.data_ptr(), pack.data_ptr(), mu.data_ptr(), out.data_ptr())
+    assert args[5:10] == (B, L, M, L * 2 * M, 2 * M)
+    assert out.shape == (B, L, M) and fs.down_sweep.launches == 1
+
+
+@pytest.mark.parametrize("pack_shape, mu_len", [((2, 15, 8), 56), ((1, 16, 8), 56),
+                                                 ((2, 16, 7), 56), ((2, 16, 8), 55)])
+def test_down_sweep_refuses_operands_that_do_not_fit(fake_card, pack_shape, mu_len):
+    with pytest.raises(ValueError, match="do not fit the source"):
+        fs.down_sweep(torch.zeros((2, 16, 56)), torch.zeros(pack_shape), -torch.ones(mu_len))
+    assert fake_card.calls == [] and fs.down_sweep.launches == 0
+
+
+def test_a_failing_down_sweep_raises(fake_card):
+    """A launch the card refuses raises; nothing falls back to the plain
+    version and no launch is counted."""
+    fake_card.fail.add("sos_down_sweep")
+    with pytest.raises(cuda_build.KernelLaunchError, match="sos_down_sweep"):
+        fs.down_sweep(torch.zeros((2, 16, 56)), torch.zeros((2, 16, fs.PK_W)),
+                      -torch.ones(56))
+    assert fs.down_sweep.launches == 0
+
+
 # the C entry points of passB's and up_sweep_smooth's stages, in launch order
 PASSB_STAGES = ("sos_passB_band", "sos_passB_walk", "sos_passB_smooth")
 UP_STAGES = ("sos_up_walk", "sos_up_joins", "sos_up_rows")
