@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (sos_rt_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py        # about 4 min on an H100, the build included
+    python3 chip_smoke.py        # about 5 min on an H100, the build included
 
 Phases, one JSON line each on stdout:
 
@@ -86,11 +86,39 @@ Phases, one JSON line each on stdout:
                  columns against the float64 solve on the card;
                  a second call with --resume that solves no shard.
 
-8. ``fused_f64`` solve_batch(engine='fused') in float64 on the card against
+8. ``reference_f64`` solve_batch(engine='reference') in float64 on the card
+                 against the same solve on the CPU at GridSpec(56, 64), B=8,
+                 both surfaces, both scan_impl values: equal order counts,
+                 I_total and I1 within rtol 1e-9, no kernel launched.
+9. ``reference`` the reference engine at full width: the ``hg`` preset on the
+                 501×800 grid, B=64: float32 with full-precision products
+                 (mm=None), col/s of a second call (the first's wall
+                 beside it), orders and peak memory, 8 columns against
+                 the float64 reference solve (as in ``canonical``); float64
+                 on the whole batch against solve_batch(engine='mega') in
+                 float64 (equal order counts, rtol 1e-9); the sequential
+                 scans on 8 columns, timed beside the associative ones.
+10. ``run_cli``  ``python -m sos_rt_tpu_torch run --preset hg -o ...`` in a
+                 process of its own (float64, one column at 501×800): wall
+                 time, order count, every output finite, I against the mega
+                 engine in float64 on the card (rtol 1e-9).
+11. ``critical_albedo`` ``critical-albedo --preset hg --tau-aer 0.02,0.5
+                 --num 16`` through cli.main (mega engine, float32: the
+                 streamed kernels at 501×800, every passI/passA launch on
+                 the tensor cores): wall time, curve, launch counts; then 4
+                 lanes of critical_albedo_batch(engine='mega') in float64
+                 against critical_albedo (the reference engine's
+                 per-column path): the same albedos.
+12. ``sweep_orders`` run_sweep(save_orders=True) on the ``fwc_sweep`` preset,
+                 4096 columns, one shard, the 64-value µ0 pool: col/s, peak
+                 memory; 8 columns' per-order rows against
+                 solve_column_orders of each column on the card (equal
+                 validity, rows within 1e-5 of scale).
+13. ``fused_f64`` solve_batch(engine='fused') in float64 on the card against
                  the same solve on the CPU, on GridSpec(56, 64) and on the
                  Gauss grid GridSpec(51, 24) with small-µ columns: equal
                  order counts, rtol 1e-9.
-9. ``fused_canonical`` the fused engine's path at full width: the ``hg``
+14. ``fused_canonical`` the fused engine's path at full width: the ``hg``
                  preset on the 501×800 grid at τ*_atm = 0.044 (the molecular
                  optical depth near 670 nm), B=64, float32 bf16x3, entered
                  as solve_batch(engine='mega', outputs='summary'): no
@@ -105,12 +133,12 @@ Phases, one JSON line each on stdout:
                  bytes, no arithmetic);
                  up_sweep_smooth split into its walk, join smoothings and
                  row pass (torch.profiler, by kernel name).
-10. ``fused_sweep`` the 4096-column sweep batch of phase ``resident`` through
+15. ``fused_sweep`` the 4096-column sweep batch of phase ``resident`` through
                  engine='fused' beside the mega engine on the same batch:
                  col/s of both, the share of columns whose order counts
                  differ (limit 0.1%), the sweep kernels at this block
                  (down_sweep to the bit), timed as in ``fused_canonical``.
-11. ``micro_ops`` the tools path: ``python -m sos_rt_tpu_torch.tools.micro_ops``
+16. ``micro_ops`` the tools path: ``python -m sos_rt_tpu_torch.tools.micro_ops``
                  (all 13 patterns, K1 = 128 and K2 = 1024 reps) through its
                  main(), with its launch count; then each pattern's kernel
                  against its plain version at k = 1 and 2 on make_inputs(0),
@@ -118,10 +146,10 @@ Phases, one JSON line each on stdout:
                  on the kernel's first rep): to the bit but for the three
                  products (1e-5 of scale);
                  one library call a rep where one torch call computes it.
-12. ``micro_pass`` ``python -m sos_rt_tpu_torch.tools.micro_pass`` through its
+17. ``micro_pass`` ``python -m sos_rt_tpu_torch.tools.micro_pass`` through its
                  main(); each of the 9 (mode, g) pairs against its plain
                  version to the bit, on the tool's ones and a random field.
-13. ``ablate``   the resident kernel's ablated builds (csrc/mega_ablate.cu):
+18. ``ablate``   the resident kernel's ablated builds (csrc/mega_ablate.cu):
                  its build of the solve itself (no flag) equal to sos_mega to
                  the bit on the sorted 4096-column sweep batch; each of the
                  13 variants of tools/ablate_kernel.py against
@@ -1497,6 +1525,295 @@ def phase_fused_sweep(device):
     return absd
 
 
+def no_launches(launches: dict, phase: str):
+    """Fail unless the run launched no kernel (the reference engine is
+    plain PyTorch)."""
+    if any(launches.values()):
+        fail(f"{phase}: the reference engine launched kernels: {launches}")
+
+
+def same_solutions(a, b, rtol: float, what: str) -> float:
+    """Fail unless two full solutions have equal order counts and fields
+    within ``rtol`` (atol 1e-11 of scale).  Returns the largest difference
+    of scale."""
+    import torch
+
+    if not torch.equal(a.n_orders.cpu(), b.n_orders.cpu()):
+        fail(f"{what}: order counts differ {a.n_orders.tolist()} vs "
+             f"{b.n_orders.tolist()}")
+    x, y = a.i_total.cpu(), b.i_total.cpu()
+    if not torch.allclose(x, y, rtol=rtol, atol=1e-11 * float(y.abs().max())):
+        fail(f"{what}: max rel err {rel_err(x, y):.3e}")
+    return rel_err(x, y)
+
+
+def phase_reference_f64(device):
+    """The reference engine in float64 on the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.config import GridSpec, SolverOptions
+    from sos_rt_tpu_torch.parallel import solve_batch
+    from sos_rt_tpu_torch.presets import get_preset
+
+    grid = GridSpec(56, 64)
+    out = {"phase": "reference_f64", "grid": [56, 64], "batch": 8, "cases": []}
+    for surface in ("lambertian", "specular"):
+        for scan_impl in ("associative", "sequential"):
+            opts = SolverOptions(surface=surface, dtype="float64", scan_impl=scan_impl)
+            sols = []
+            for dev in (device, torch.device("cpu")):
+                scenes = random_scenes(get_preset("hg"), 8, dev,
+                                       np.random.default_rng(SEED))
+                _, sol, launches = timed_solve(lambda: solve_batch(
+                    scenes, test_tables(grid, dev, torch.float64), grid, opts,
+                    engine="reference", device=dev))
+                sols.append(sol)
+            no_launches(launches, "reference_f64")
+            what = f"reference_f64 {surface} {scan_impl}"
+            err = same_solutions(*sols, 1e-9, what)
+            same_solutions(dataclasses.replace(sols[0], i_total=sols[0].i1),
+                           dataclasses.replace(sols[1], i_total=sols[1].i1), 1e-9,
+                           what + " i1")
+            out["cases"].append({"surface": surface, "scan_impl": scan_impl,
+                                 "n_orders": sols[1].n_orders.tolist(), "rel_err": err})
+    emit(out)
+
+
+def phase_reference(device):
+    """The reference engine at full width: the hg preset on the 501×800
+    grid, B=64."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.config import SolverOptions
+    from sos_rt_tpu_torch.fused import take_columns, to_summary
+    from sos_rt_tpu_torch.metrics import solution_metrics
+    from sos_rt_tpu_torch.parallel import solve_batch
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import PhaseTables
+
+    preset = get_preset("hg")
+    grid, B = preset.grid, 64
+    scenes = random_scenes(preset, B, device, np.random.default_rng(SEED))
+    tables = {dt: PhaseTables.from_models(grid, 0.5, atm=preset.atm, aer=preset.aer,
+                                          dtype=dt, device=device)
+              for dt in (torch.float32, torch.float64)}
+    opts = {dt: SolverOptions(surface="lambertian", dtype=dt)
+            for dt in ("float32", "float64")}
+    solve = lambda s, t, o, **kw: solve_batch(s, t, grid, o, device=device, **kw)
+    out = {"phase": "reference", "grid": [grid.nb_angles, grid.nb_layers], "batch": B}
+
+    # float32, full-precision products (mm=None); the first call pays the
+    # first use of this batch's shapes, the second is the one reported
+    run32 = lambda: solve(scenes, tables[torch.float32], opts["float32"])
+    torch.cuda.empty_cache()
+    first_wall = timed_solve(run32)[0]
+    torch.cuda.reset_peak_memory_stats()
+    wall, sol32, launches = timed_solve(run32)
+    no_launches(launches, "reference")
+    if not bool(torch.isfinite(sol32.i_total).all()):
+        fail("reference: float32 values are not finite")
+    out["float32"] = {"mm": None, "first_wall_s": first_wall,
+                      "metrics": solution_metrics(sol32, wall_s=wall),
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    sub = torch.arange(8, device=device) * (B // 8)
+    s8 = take_columns(scenes, sub)
+    ref8 = solve(s8, tables[torch.float64], opts["float64"], engine="reference")
+    out["float32"]["f64_check"] = f32_vs_f64(to_summary(sol32), to_summary(ref8), sub,
+                                             "reference")
+    del sol32
+    torch.cuda.empty_cache()
+
+    # float64, the whole batch, against the mega engine on the card
+    torch.cuda.reset_peak_memory_stats()
+    wall64, sol64, _ = timed_solve(lambda: solve(scenes, tables[torch.float64],
+                                                 opts["float64"]))
+    peak64 = torch.cuda.max_memory_allocated() / 1e9
+    mega_wall, mega64, mega_launches = timed_solve(lambda: solve(
+        scenes, tables[torch.float64], opts["float64"], engine="mega"))
+    check_path_launches(mega_launches, grid, torch.float64, "reference (mega float64)")
+    err = same_solutions(sol64, mega64, 1e-9, "reference float64 vs mega float64")
+    out["float64"] = {"metrics": solution_metrics(sol64, wall_s=wall64),
+                      "peak_memory_gb": peak64, "mega_wall_s": mega_wall,
+                      "rel_err_to_mega": err}
+    del sol64, mega64
+    torch.cuda.empty_cache()
+
+    # the sequential scans on 8 of the columns (800 steps a sweep)
+    seq = dataclasses.replace(opts["float32"], scan_impl="sequential")
+    wall_seq, sol_seq, _ = timed_solve(lambda: solve(s8, tables[torch.float32], seq))
+    wall_assoc, sol_assoc, _ = timed_solve(lambda: solve(s8, tables[torch.float32],
+                                                         opts["float32"]))
+    if not torch.equal(sol_seq.n_orders, sol_assoc.n_orders):
+        fail(f"reference: sequential scans' order counts {sol_seq.n_orders.tolist()} "
+             f"vs associative {sol_assoc.n_orders.tolist()}")
+    out["sequential_8"] = {"wall_s": wall_seq, "associative_wall_s": wall_assoc,
+                           "n_orders": sol_seq.n_orders.tolist(),
+                           "rel_to_associative": rel_err(sol_seq.i_total,
+                                                         sol_assoc.i_total)}
+    emit(out)
+
+
+def phase_run_cli(device):
+    """``python -m sos_rt_tpu_torch run --preset hg`` in a process of its
+    own, against the mega engine in float64 on the card."""
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.parallel import broadcast_scene, solve_batch
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import PhaseTables, solve_column
+
+    out_dir = os.path.join(HERE, "build", "sos_rt_tpu_torch", "run_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "hg.npz")
+    argv = [sys.executable, "-m", "sos_rt_tpu_torch", "run", "--preset", "hg", "-o", path]
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"run_cli exited {res.returncode}: {res.stderr[-2000:]}")
+    with np.load(path) as z:
+        got = {k: z[k] for k in z.files}
+    for k in ("flux_up", "flux_down", "net_flux", "diffusivity", "heating_rate", "I"):
+        if not np.isfinite(got[k]).all():
+            fail(f"run_cli: {k} has non-finite values")
+    preset = get_preset("hg")
+    tables = PhaseTables.from_models(preset.grid, 0.5, atm=preset.atm, aer=preset.aer,
+                                     dtype=torch.float64, device=device)
+    mega = solve_batch(broadcast_scene(preset.scene, 1, device=device), tables,
+                       preset.grid, preset.opts, engine="mega", device=device)
+    want = mega.i_total[0].cpu().numpy()
+    if int(got["n_orders"]) != int(mega.n_orders[0]):
+        fail(f"run_cli: {int(got['n_orders'])} orders, the mega engine "
+             f"{int(mega.n_orders[0])}")
+    if not np.allclose(got["I"], want, rtol=1e-9, atol=1e-11 * np.abs(want).max()):
+        fail("run_cli: I differs from the mega engine's, max rel "
+             f"{np.abs(got['I'] - want).max() / np.abs(want).max():.3e}")
+    # the same column's solve warm, in this process (the command's own
+    # "solved in" line times the first solve of a fresh process)
+    warm = [timed_solve(lambda: solve_column(preset.scene, tables, preset.grid,
+                                             preset.opts, device=device))[0]
+            for _ in range(2)]
+    solved = [ln for ln in res.stderr.splitlines() if "solved in" in ln]
+    emit({"phase": "run_cli", "argv": argv[2:], "warm_solve_s": warm,
+          "grid": [preset.grid.nb_angles, preset.grid.nb_layers], "dtype": "float64",
+          "wall_s": wall, "solve_line": solved[0] if solved else None,
+          "n_orders": int(got["n_orders"]),
+          "rel_err_to_mega": float(np.abs(got["I"] - want).max() / np.abs(want).max()),
+          "toa_net_flux": float(-got["flux_down"][0] - got["flux_up"][0])})
+
+
+def phase_critical_albedo(device):
+    """The critical-albedo command (mega engine, float32, 16 lanes) at
+    501×800, then the batched bisection against the per-column one in
+    float64 on 4 lanes."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from sos_rt_tpu_torch import cli
+    from sos_rt_tpu_torch.forcing import critical_albedo, critical_albedo_batch
+    from sos_rt_tpu_torch.parallel import broadcast_scene
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import PhaseTables
+
+    out_dir = os.path.join(HERE, "build", "sos_rt_tpu_torch")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, "critical_albedo.json")
+    argv = ["critical-albedo", "--preset", "hg", "--tau-aer", "0.02,0.5", "--num", "16",
+            "-o", out_path]
+    with contextlib.redirect_stderr(io.StringIO()):
+        wall, _, launches = timed_solve(lambda: cli.main(argv))
+    preset = get_preset("hg")
+    check_path_launches(launches, preset.grid, torch.float32, "critical_albedo")
+    tc_route_ok(launches, True, "critical_albedo")
+    with open(out_path) as f:
+        curve = json.load(f)["critical_albedo"]
+    if len(curve) != 16 or not all(0.0 <= a <= 1.0 for a in curve.values()):
+        fail(f"critical_albedo: curve {curve}")
+
+    taus = torch.tensor([0.02, 0.1, 0.25, 0.5], dtype=torch.float64, device=device)
+    scenes = dataclasses.replace(broadcast_scene(preset.scene, 4, device=device),
+                                 tau_star_aer=taus)
+    tables = PhaseTables.from_models(preset.grid, 0.5, atm=preset.atm, aer=preset.aer,
+                                     dtype=torch.float64, device=device)
+    t0 = time.perf_counter()
+    batch = critical_albedo_batch(scenes, tables, preset.grid, preset.opts,
+                                  engine="mega", device=device)
+    t1 = time.perf_counter()
+    column = critical_albedo(scenes, tables, preset.grid, preset.opts, device=device)
+    t2 = time.perf_counter()
+    if not torch.allclose(batch, column, rtol=1e-9, atol=1e-12):
+        fail(f"critical_albedo: batched {batch.tolist()} vs per-column {column.tolist()}")
+    emit({"phase": "critical_albedo", "argv": argv[:7],
+          "grid": [preset.grid.nb_angles, preset.grid.nb_layers],
+          "dtype": "float32", "engine": "mega", "wall_s": wall, "launches": launches,
+          "curve": curve, "f64_lanes": {"tau_star_aer": taus.tolist(),
+                                        "albedo": column.tolist(),
+                                        "batch_mega_wall_s": t1 - t0,
+                                        "column_wall_s": t2 - t1}})
+
+
+def phase_sweep_orders(device):
+    """run_sweep(save_orders=True) on the sweep preset, 4096 columns, one
+    shard; 8 columns against solve_column_orders on the card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.fused import take_columns
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import solve_column_orders
+    from sos_rt_tpu_torch.sweep import build_sweep_batch, load_sweep, run_sweep
+
+    preset = get_preset("fwc_sweep")
+    B = 4096
+    out_dir = os.path.join(HERE, "build", "sos_rt_tpu_torch", "sweep_orders")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    wall, m, launches = timed_solve(lambda: run_sweep(
+        preset, B, mu0_pool=64, chunk=B, out_dir=out_dir, save_orders=True,
+        device=device))
+    no_launches(launches, "sweep_orders")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = load_sweep(out_dir)
+    K, M2 = preset.opts.max_orders, 2 * preset.grid.nb_angles
+    for k in ("orders_toa", "orders_surface"):
+        if res[k].shape != (B, K, M2) or not np.isfinite(res[k]).all():
+            fail(f"sweep_orders: {k} has shape {res[k].shape} or non-finite values")
+    if not (np.array_equal(res["order_valid"].sum(1), res["n_orders"])
+            and m["complete"]):
+        fail(f"sweep_orders: valid slots do not count the orders: {m}")
+    scenes, tables = build_sweep_batch(preset, B, mu0_pool=64, device=device)
+    worst = 0.0
+    for c in range(0, B, B // 8):
+        sol, buf, valid = solve_column_orders(
+            take_columns(scenes, [c]), tables.take([c]), preset.grid, preset.opts,
+            save_rows=(0, -1), device=device)
+        if not np.array_equal(valid.cpu().numpy(), res["order_valid"][c]):
+            fail(f"sweep_orders: column {c}: valid {valid.tolist()} vs "
+                 f"{res['order_valid'][c].tolist()}")
+        for r, k in ((0, "orders_toa"), (1, "orders_surface")):
+            want = buf[:, r].cpu().numpy()
+            err = np.abs(res[k][c] - want).max() / np.abs(want).max()
+            if not err <= 1e-5:
+                fail(f"sweep_orders: column {c} {k} off by {err:.3e} of scale")
+            worst = max(worst, float(err))
+    emit({"phase": "sweep_orders", "grid": [64, 128], "batch": B, "chunk": B,
+          "mu0_pool": 64, "dtype": preset.opts.dtype, "metrics": m,
+          "col_per_s": m["col_per_s"], "call_wall_s": wall, "peak_memory_gb": peak,
+          "checked_columns": 8, "max_rel_to_column": worst})
+
+
 def run_tool(main, argv):
     """A tool's main(argv) with its printed lines captured: (result, lines)."""
     import contextlib
@@ -1764,6 +2081,11 @@ def main(argv=None) -> int:
         k["max_abs_err"] = max(k["max_abs_err"], fwc_abs[k["name"]])
     mega = phase_resident(device)
     mega["launches"] = phase_sweep_cli(device)
+    phase_reference_f64(device)
+    phase_reference(device)
+    phase_run_cli(device)
+    phase_critical_albedo(device)
+    phase_sweep_orders(device)
     phase_fused_f64(device)
     sweeps = phase_fused_canonical(device, sweep_abs)
     fused_abs = phase_fused_sweep(device)

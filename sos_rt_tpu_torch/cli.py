@@ -2,14 +2,17 @@
 
 Counterpart of ``sos_rt_tpu/cli.py``, with the same commands and flags:
 
+  run              solve a scenario preset (or overridden parameters),
+                   write results to .npz, optionally plot
+  critical-albedo  Haywood critical-albedo search over τ*_aer values
   sweep            batched column sweep (columns × parameters)
   list             show presets and phase models
-  run              solve a scenario preset        (not ported yet)
-  critical-albedo  Haywood critical-albedo search (not ported yet)
 
 and one flag more, ``--device``: the commands run on the GPU unless it
 names another device (``--device cpu`` runs the plain PyTorch versions of
-the kernels).  All outputs are relative paths.
+the kernels).  All outputs are relative paths.  The Mie presets (``eva``,
+the default of ``run`` and ``critical-albedo``, and ``wildfire``) need the
+Mie models, which are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,8 +20,205 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
 
-from sos_rt_tpu_torch.config import SCENE_FIELDS, NotPortedError
+import numpy as np
+import torch
+
+from sos_rt_tpu_torch.config import SCENE_FIELDS, NotPortedError, torch_dtype
+
+
+def _build(preset, dtype, device):
+    from sos_rt_tpu_torch.solver import PhaseTables
+
+    return PhaseTables.from_models(preset.grid, float(np.asarray(preset.scene.mu0)),
+                                   atm=preset.atm, aer=preset.aer,
+                                   dtype=torch_dtype(dtype), device=device)
+
+
+def _scene_overrides(scene, args):
+    over = {f: getattr(args, f) for f in SCENE_FIELDS
+            if getattr(args, f, None) is not None}
+    return dataclasses.replace(scene, **over) if over else scene
+
+
+def _to_np(x):
+    return x.detach().cpu().numpy()
+
+
+def cmd_run(args):
+    """Solve one column of a preset (the reference engine) and write the
+    radiance field, I₁, fluxes, diffusivity and heating rate to .npz."""
+    from sos_rt_tpu_torch import outputs
+    from sos_rt_tpu_torch.config import GridSpec, resolve_device
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import solve_column
+
+    device = resolve_device(args.device)
+    p = get_preset(args.preset)
+    grid = p.grid
+    if args.nb_angles or args.nb_layers:
+        grid = GridSpec(nb_angles=args.nb_angles or grid.nb_angles,
+                        nb_layers=args.nb_layers or grid.nb_layers)
+        p = dataclasses.replace(p, grid=grid)
+    opts = p.opts
+    for f in ("surface", "dtype", "mm"):
+        if getattr(args, f):
+            opts = dataclasses.replace(opts, **{f: getattr(args, f)})
+    scene = _scene_overrides(p.scene, args)
+
+    print(f"[sos] building {p.atm[0]}/{p.aer[0]} tables "
+          f"(grid {grid.nb_angles}x{grid.nb_layers})...", file=sys.stderr)
+    tables = _build(dataclasses.replace(p, scene=scene), opts.dtype, device)
+    t0 = time.perf_counter()
+    sol = solve_column(scene, tables, grid, opts, device=device)
+    n_orders = int(sol.n_orders)           # waits for the device
+    dt = time.perf_counter() - t0
+    print(f"[sos] solved in {dt:.2f}s: {n_orders} orders, "
+          f"converged={bool(sol.converged)}", file=sys.stderr)
+
+    as_t = lambda x: torch.as_tensor(x, dtype=sol.i_total.dtype, device=device)
+    mu, w = as_t(grid.mu()), as_t(grid.trapz_weights())
+    z = torch.as_tensor(np.linspace(float(scene.z0), 0.0, grid.nb_layers),
+                        device=device)
+    mu0, grd = float(scene.mu0), float(scene.grd_alb)
+    fu, fd = outputs.flux_up_down(sol.i_total, mu, w, sol.tau, mu0, grd,
+                                  grid.nb_angles)
+    nf = outputs.net_flux(sol.i_total, mu, w, sol.tau, mu0, grd)   # graphe_flux convention
+    dif = outputs.diffusivity(sol.i_total, mu, w)
+    hr = outputs.heating_rate(sol.i_total, mu, w, sol.tau, z, mu0, grd,
+                              grid.nb_angles, sol.idx_up, sol.idx_down)
+    out = args.output or f"sos_{p.name}.npz"
+    np.savez_compressed(
+        out, I=_to_np(sol.i_total), I1=_to_np(sol.i1), tau=_to_np(sol.tau),
+        mu=_to_np(mu), z=_to_np(z), flux_up=_to_np(fu), flux_down=_to_np(fd),
+        net_flux=_to_np(nf), diffusivity=_to_np(dif), heating_rate=_to_np(hr),
+        n_orders=n_orders)
+    print(f"[sos] wrote {out}", file=sys.stderr)
+    if args.save_orders:
+        _save_orders(scene, tables, grid, opts, out, z, device)
+    if args.plot:
+        _plot(out)
+
+
+def _save_orders(scene, tables, grid, opts, out, z, device):
+    """Per-order artifacts: Iₙ fields + per-order diffusivity + plot (the
+    reference's ``graphe_successive_dif``, SOS_Aer_graphe.py:118-149, from
+    the driver's ``I_saved`` list, SOS_Aer_main_lambertian.py:460)."""
+    from sos_rt_tpu_torch import outputs
+    from sos_rt_tpu_torch.solver import solve_column_orders
+
+    _, buf, valid = solve_column_orders(scene, tables, grid, opts, device=device)
+    n = int(valid.sum())
+    i_orders = buf[:n]
+    as_t = lambda x: torch.as_tensor(x, dtype=buf.dtype, device=device)
+    dif_orders = _to_np(outputs.per_order_diffusivity(
+        i_orders, as_t(grid.mu()), as_t(grid.trapz_weights())))
+    path = out.replace(".npz", "_orders.npz")
+    np.savez_compressed(path, I_orders=_to_np(i_orders),
+                        diffusivity_orders=dif_orders, z=_to_np(z))
+    print(f"[sos] wrote {path} ({n} orders)", file=sys.stderr)
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(6, 5))
+    for k in range(n):
+        ax.plot(dif_orders[k], _to_np(z), label=f"order {k + 1}", alpha=0.8)
+    ax.set_xlabel(r"per-order diffusivity $\bar{\mu}$")
+    ax.set_ylabel("Altitude (km)")
+    ax.grid(True)
+    if n <= 12:
+        ax.legend(fontsize=7)
+    png = path.replace(".npz", ".png")
+    fig.tight_layout(), fig.savefig(png, dpi=150)
+    print(f"[sos] wrote {png}", file=sys.stderr)
+
+
+def _plot(path):
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    with np.load(path) as z:
+        fig, axes = plt.subplots(1, 3, figsize=(13, 4))
+        axes[0].plot(z["flux_up"], z["z"], label="flux up")
+        axes[0].plot(z["flux_down"], z["z"], label="flux down")
+        if "net_flux" in z.files:
+            axes[0].plot(z["net_flux"], z["z"], label="net (graphe)", ls="--")
+        axes[0].set_xlabel("Flux"), axes[0].legend()
+        axes[1].plot(z["diffusivity"], z["z"])
+        axes[1].set_xlabel(r"Diffusivity $\bar{\mu}$")
+        axes[2].plot(z["heating_rate"], z["z"])
+        axes[2].set_xlabel("Heating rate")
+        for ax in axes:
+            ax.set_ylabel("Altitude (km)"), ax.grid(True)
+        png = path.replace(".npz", ".png")
+        fig.tight_layout(), fig.savefig(png, dpi=150)
+        print(f"[sos] wrote {png}", file=sys.stderr)
+
+
+def cmd_critical_albedo(args):
+    """Haywood critical-albedo curve over a τ*_aer list: every τ value is
+    one lane of a batched scene, and each bisection step solves all lanes
+    together."""
+    from sos_rt_tpu_torch.config import resolve_device
+    from sos_rt_tpu_torch.forcing import critical_albedo, critical_albedo_batch
+    from sos_rt_tpu_torch.parallel import broadcast_scene
+    from sos_rt_tpu_torch.presets import get_preset
+
+    device = resolve_device(args.device)
+    p = get_preset(args.preset)
+    if args.engine == "mega" and p.opts.dtype != "float32":
+        # the production batched path is the float32 engine; the float64
+        # per-column path (--engine column) is the verification twin
+        p = dataclasses.replace(p, opts=dataclasses.replace(p.opts, dtype="float32"))
+        print("[sos] --engine mega: using float32 (production path); "
+              "--engine column keeps the preset dtype", file=sys.stderr)
+    tables = _build(p, p.opts.dtype, device)
+    taus = np.array([float(x) for x in args.tau_aer.split(",")])
+    if args.num and args.num > len(taus):
+        # densify between the min/max of --tau-aer; geometric spacing needs
+        # a positive lower endpoint, linear otherwise
+        lo, hi = float(taus.min()), float(taus.max())
+        hi = max(hi, lo + 1e-6)
+        taus = np.geomspace(lo, hi, args.num) if lo > 0 else np.linspace(lo, hi, args.num)
+    t0 = time.perf_counter()
+    scenes = dataclasses.replace(broadcast_scene(p.scene, len(taus), device=device),
+                                 tau_star_aer=torch.as_tensor(taus, device=device))
+    if args.engine == "column":
+        albs = critical_albedo(scenes, tables, p.grid, p.opts, device=device)
+    else:
+        albs = critical_albedo_batch(scenes, tables, p.grid, p.opts,
+                                     engine=args.engine, device=device)
+    albs = _to_np(albs)
+    dt = time.perf_counter() - t0
+    results = {float(t): float(a) for t, a in zip(taus, albs)}
+    for t, a in results.items():
+        print(f"[sos] tau*_aer={t}: critical albedo = {a:.4f}", file=sys.stderr)
+    print(f"[sos] {len(taus)}-point curve in {dt:.2f}s (batched bisection)",
+          file=sys.stderr)
+    out = args.output or "critical_albedo.json"
+    with open(out, "w") as f:
+        json.dump({"preset": args.preset, "critical_albedo": results}, f, indent=2)
+    print(f"[sos] wrote {out}", file=sys.stderr)
+    if args.plot and len(taus) > 1:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots(figsize=(6, 4))
+        ax.plot(taus, albs, "o-")
+        ax.set_xlabel(r"$\tau^*_{aer}$")
+        ax.set_ylabel(r"critical albedo $\omega_c$")
+        ax.grid(True)
+        png = out.rsplit(".", 1)[0] + ".png"
+        fig.tight_layout(), fig.savefig(png, dpi=150)
+        print(f"[sos] wrote {png}", file=sys.stderr)
 
 
 def cmd_sweep(args):
@@ -68,16 +268,6 @@ def cmd_list(_args):
     print("phase models:", ", ".join(available_models()))
 
 
-def cmd_run(_args):
-    raise NotPortedError("the run command needs solve_column and outputs.py, "
-                         "which are not ported yet; see ROADMAP.md")
-
-
-def cmd_critical_albedo(_args):
-    raise NotPortedError("the critical-albedo command needs forcing.py, "
-                         "which is not ported yet; see ROADMAP.md")
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="sos_rt_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -85,7 +275,7 @@ def build_parser() -> argparse.ArgumentParser:
     device = dict(default=None, help="torch device (default: the GPU; 'cpu' runs "
                                      "the plain PyTorch versions of the kernels)")
 
-    run = sub.add_parser("run", help="solve one scenario (not ported yet)")
+    run = sub.add_parser("run", help="solve one scenario")
     run.add_argument("--preset", default="eva")
     run.add_argument("--surface", choices=["lambertian", "specular"])
     run.add_argument("--dtype", choices=["float32", "float64"])
@@ -98,12 +288,12 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--output", "-o")
     run.add_argument("--plot", action="store_true")
     run.add_argument("--save-orders", action="store_true", dest="save_orders",
-                     help="also write per-order fields + per-order diffusivity")
+                     help="also write per-order fields + per-order "
+                          "diffusivity (npz + png)")
     run.add_argument("--device", **device)
     run.set_defaults(fn=cmd_run)
 
-    ca = sub.add_parser("critical-albedo",
-                        help="Haywood critical albedo (not ported yet)")
+    ca = sub.add_parser("critical-albedo", help="Haywood critical albedo")
     ca.add_argument("--preset", default="eva")
     ca.add_argument("--tau-aer", default="0.120", dest="tau_aer",
                     help="comma-separated τ*_aer values (batched as lanes)")
@@ -111,7 +301,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="densify to N geometric τ*_aer lanes between "
                          "min/max of --tau-aer")
     ca.add_argument("--engine", choices=["mega", "reference", "column"],
-                    default="mega", help="forcing evaluator per bisection step")
+                    default="mega",
+                    help="forcing evaluator per bisection step: 'mega' = one "
+                         "batched summary solve (float32), 'reference' = the "
+                         "batched reference engine, 'column' = the per-column "
+                         "reference path (float64-capable twin)")
     ca.add_argument("--plot", action="store_true")
     ca.add_argument("--output", "-o")
     ca.add_argument("--device", **device)
@@ -139,8 +333,9 @@ def build_parser() -> argparse.ArgumentParser:
     sw.add_argument("--dtype", choices=["float32", "float64"],
                     help="override the preset compute dtype")
     sw.add_argument("--save-orders", action="store_true", dest="save_orders",
-                    help="record per-order TOA/surface rows per column in "
-                         "the shard files (not ported yet)")
+                    help="record per-order TOA/surface rows + validity per "
+                         "column in the shard files (runs the reference "
+                         "engine, slower than mega)")
     sw.add_argument("--mm", choices=["bf16x3", "bf16x5", "highest"],
                     help="matmul precision mode (config.SolverOptions.mm)")
     sw.add_argument("--chunk", type=int, default=0,

@@ -33,8 +33,8 @@ MU0_RESONANCE_TOL = 1e-4
 
 class NotPortedError(NotImplementedError):
     """A route of the TPU package that this port does not run yet (the
-    reference engine, the host-side first order of the mega engine, meshes,
-    the Mie models, per-order outputs).  Raised instead of falling back;
+    host-side first order of the mega engine, meshes, the Mie models, the
+    layer-sharded and single-layer solves).  Raised instead of falling back;
     see ROADMAP.md for the order in which they come."""
 
 
@@ -165,14 +165,19 @@ class SolverOptions:
                       decompositions of ops/precision.py, or full
                       precision).  None is the engine's default: 'bf16x3'
                       for the mega engine, full-precision products
-                      ('highest') for the fused engine, as in the JAX
-                      package.  float64 always runs at full precision.
+                      ('highest') for the fused engine and the reference
+                      engine, as in the JAX package.  float64 always runs
+                      at full precision.
+    - ``scan_impl``   the reference engine's affine scans over layers:
+                      'sequential' runs a loop over layers; any other value
+                      (default 'associative') the associative scan.
     """
 
     surface: str = "lambertian"
     max_orders: int = 100
     tol: float = 1e-4
     dtype: str = "float64"
+    scan_impl: str = "associative"
     mm: Optional[str] = None
 
     def __post_init__(self):

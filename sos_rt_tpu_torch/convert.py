@@ -37,8 +37,9 @@ def tables_from(tables, dtype=torch.float64, device=None) -> PhaseTables:
 
 
 def options_from(opts) -> SolverOptions:
-    """SolverOptions from one with the same fields (``scan_impl``, an
-    option of the TPU package's reference engine, is not carried)."""
+    """SolverOptions from one with the same fields (``scan_impl`` taken as
+    'associative' where ``opts`` has none)."""
     return SolverOptions(surface=str(opts.surface), max_orders=int(opts.max_orders),
                          tol=float(opts.tol), dtype=str(opts.dtype),
+                         scan_impl=str(getattr(opts, "scan_impl", "associative")),
                          mm=None if opts.mm is None else str(opts.mm))

@@ -39,9 +39,9 @@ from sos_rt_tpu_torch.ops.first_order import first_order, first_order_mega_input
 from sos_rt_tpu_torch.ops.fused_sweeps import build_pack, down_sweep, up_sweep_smooth
 from sos_rt_tpu_torch.ops.precision import make_split_dot
 from sos_rt_tpu_torch.ops.source import source_operator
-from sos_rt_tpu_torch.ops.sweeps import (EXP_CLAMP, band_choice,
-                                         polyfit_band_variants,
-                                         select_band_choice, stencils_for)
+from sos_rt_tpu_torch.ops.sweeps import (band_choice, polyfit_band_variants,
+                                         select_band_choice, small_mu_values,
+                                         small_mu_window, stencils_for)
 from sos_rt_tpu_torch.solver import PhaseTables, Solution
 
 
@@ -482,25 +482,9 @@ class FusedBatch:
         self.small_cols = on_dev(stencils.small_cols, torch.long)
         self.has_small = stencils.small_cols.size > 0
         if self.has_small:
-            mu_s = mu[self.small_cols]
-            self.mu_s = mu_s
+            self.mu_s = mu[self.small_cols]
             self.taylor_mask = on_dev(stencils.taylor_mask, torch.bool)
-            region_start = torch.where(
-                t_idx[None, :] < idx_up[:, None], 0,
-                torch.where(t_idx[None, :] <= idx_down[:, None], idx_up[:, None],
-                            idx_down[:, None] + 1))               # (B, L)
-            cutoff = tau[:, :, None] - 5.0 * torch.abs(mu_s)[None, None, :]
-            first_k = torch.searchsorted(tau, cutoff.reshape(self.B, -1).contiguous(),
-                                         side="left").reshape(cutoff.shape)
-            self.k0 = torch.minimum(torch.maximum(first_k, region_start[:, :, None]),
-                                    t_idx[None, :, None])
-            tau_k0 = torch.gather(tau[:, :, None].expand(self.k0.shape), 1, self.k0)
-            self.att_k0 = torch.exp(torch.clamp(
-                (tau[:, :, None] - tau_k0) / mu_s[None, None, :], EXP_CLAMP, 0.0))
-            self.prev_t = torch.clamp(t_idx - 1, 0, L - 1)
-            self.taylor_den = torch.where(t_idx[None, :, None] > 0,
-                                          (tau - tau[:, self.prev_t])[:, :, None], 1.0)
-            self.taylor_on = (t_idx[None, :] > region_start)[:, :, None]
+            self.window = small_mu_window(tau, idx_up, idx_down, self.mu_s)
 
         # polyfit band selection
         self.choice_a = band_choice(torch.gather(tau, 1, (idx_up - 1)[:, None])[:, 0])
@@ -530,14 +514,9 @@ class FusedBatch:
         µ=0⁻ column and the polyfit band, written into ``raw`` in place."""
         M = self.M
         if self.has_small:
-            raw_s = raw[:, :, self.small_cols]
-            windowed = raw_s - self.att_k0 * torch.gather(raw_s, 1, self.k0)
-            jn_s = jn[:, :, self.small_cols]
-            dj = torch.where(self.taylor_on,
-                             (jn_s - jn_s[:, self.prev_t]) / self.taylor_den, 0.0)
-            taylor = -jn_s + self.mu_s[None, None, :] * dj
-            raw[:, :, self.small_cols] = torch.where(self.taylor_mask[None, None, :],
-                                                     taylor, windowed)
+            raw[:, :, self.small_cols] = small_mu_values(
+                jn[:, :, self.small_cols], raw[:, :, self.small_cols], self.mu_s,
+                self.taylor_mask, self.window)
         raw[:, :, M - 1] = 0.0
         polys, _ = polyfit_band_variants(raw, self.stencils)  # (4, B, L, band_max)
         poly = torch.where(self.in_a_col,

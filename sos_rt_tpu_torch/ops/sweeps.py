@@ -1,13 +1,29 @@
-"""Static sweep stencils (the host-side part of ``sos_rt_tpu/ops/sweeps.py``).
+"""Scan-based radiance sweeps and their static stencils.
+
+Counterpart of ``sos_rt_tpu/ops/sweeps.py``.  The reference's per-layer
+trapezoid integrals (SOS_Aer_main_lambertian.py:328-451) telescope into one
+affine recurrence over layers per sweep direction,
+
+    S_t = a_t S_{t-1} + b_t,   a_t = e^{Δτ_t/µ},
+    b_t = (Δτ_t/2)(J_{t-1} a_t + J_t),     I_t = -S_t/µ
+
+(mirrored for the upward sweep, with b=0 at the two region joins), which
+:func:`_affine_scan` evaluates as an associative scan in the same pairing
+as the TPU package, or as a loop over layers.  Also here:
 
 - the µ→0⁻ polyfit band (SOS_Aer_In_limit.py:113-141) has four possible
   static widths (main_lambertian.py:344-347); its np.polyfit stencils are
-  precomputed per width and selected per column by τ thresholds;
-- the small-µ column set (|µ| < 0.01) and its Taylor mask;
-- :func:`polyfit_band_variants` / :func:`select_band_choice`, the band
-  extrapolation the fused engine applies between its two sweep kernels.
+  precomputed per width and selected per column by τ thresholds
+  (:func:`polyfit_band_variants` / :func:`select_band_choice`);
+- the small-µ column set (|µ| < 0.01), its Taylor mask and the windowed
+  asymptotic integral over it (:func:`small_mu_window`,
+  :func:`down_small_mu`);
+- the µ→0⁺ smoothing walk as a first-index reduction and one-hot
+  reductions per row (:func:`smooth_up_rows`).
 
-The scan-based sweeps of the reference engine are a later slice.
+Every function takes a leading (B,) column axis where the TPU package
+maps over columns: fields are (B, L, M), τ profiles (B, L), region
+indices (B,).
 """
 from __future__ import annotations
 
@@ -141,3 +157,194 @@ def select_band_choice(stacked, choice):
     for c in range(1, 4):
         out = torch.where(choice == c, stacked[c], out)
     return out
+
+
+# --------------------------------------------------------------------------
+# Affine scans
+# --------------------------------------------------------------------------
+
+def _combine(left, right):
+    al, bl = left
+    ar, br = right
+    return al * ar, bl * ar + br
+
+
+def _interleave(even, odd):
+    """even[0], odd[0], even[1], ... along the layer axis (-2)."""
+    shape = list(even.shape)
+    shape[-2] += odd.shape[-2]
+    out = even.new_empty(shape)
+    out[..., 0::2, :] = even
+    out[..., 1::2, :] = odd
+    return out
+
+
+def _associative_scan(a, b):
+    """The TPU package's odd/even associative-scan recursion over axis -2
+    with :func:`_combine`: combine adjacent pairs, scan the pairs
+    recursively, combine the odd results with the even elements, then
+    interleave — so every partial sum is formed from the same pairs, in
+    the same order, as the TPU package forms it."""
+    n = a.shape[-2]
+    if n < 2:
+        return a, b
+    ra, rb = _combine((a[..., 0:-1:2, :], b[..., 0:-1:2, :]),
+                      (a[..., 1::2, :], b[..., 1::2, :]))
+    oa, ob = _associative_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _combine((oa[..., :-1, :], ob[..., :-1, :]),
+                          (a[..., 2::2, :], b[..., 2::2, :]))
+    else:
+        ea, eb = _combine((oa, ob), (a[..., 2::2, :], b[..., 2::2, :]))
+    ea = torch.cat([a[..., :1, :], ea], dim=-2)
+    eb = torch.cat([b[..., :1, :], eb], dim=-2)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _affine_scan(a, b, reverse: bool = False, method: str = "associative"):
+    """I_t = a_t·I_{t-1} + b_t from I_{-1}=0 over the layer axis (-2) of
+    (..., L, M) tensors, or the reversed recurrence.
+
+    method='sequential': L steps of (..., M) work; any other value: the
+    associative scan (:func:`_associative_scan`; ``reverse`` flips, scans
+    and flips back, as the TPU package's scan does).
+    """
+    if method == "sequential":
+        ys = torch.empty_like(b)
+        carry = torch.zeros_like(b[..., 0, :])
+        steps = range(b.shape[-2] - 1, -1, -1) if reverse else range(b.shape[-2])
+        for t in steps:
+            carry = a[..., t, :] * carry + b[..., t, :]
+            ys[..., t, :] = carry
+        return ys
+    if reverse:
+        a, b = a.flip(-2), b.flip(-2)
+    s = _associative_scan(a, b)[1]
+    return s.flip(-2) if reverse else s
+
+
+def down_sweep_scan(jn_down, tau, mu_down, method: str = "associative"):
+    """Downward field (B, L, M) for all µ≤0 columns via one forward affine
+    scan (main_lambertian.py:332-387 telescoped); the µ=0 column is garbage
+    here and replaced downstream by the polyfit band.
+
+    jn_down (B, L, M), tau (B, L), mu_down (M,)."""
+    dtau = torch.diff(tau, dim=-1)[..., None]
+    safe_mu = torch.where(mu_down == 0, -1.0, mu_down)
+    att = torch.exp(dtau / safe_mu)
+    a = torch.cat([torch.ones_like(att[..., :1, :]), att], dim=-2)
+    b = torch.cat([torch.zeros_like(att[..., :1, :]),
+                   0.5 * dtau * (jn_down[..., :-1, :] * att + jn_down[..., 1:, :])],
+                  dim=-2)
+    return -_affine_scan(a, b, method=method) / safe_mu
+
+
+def up_sweep_scan(jn_up, tau, mu_up, boundary, idx_up, idx_down,
+                  method: str = "associative"):
+    """Raw upward field (µ>0, excluding µ=0) via one reverse affine scan.
+
+    I_t = e^{-Δτ_{t+1}/µ} I_{t+1} + c_t, with c zeroed at the two region
+    joins t ∈ {idx_down, idx_up-1} (main_lambertian.py:415-421, 435-441).
+    jn_up (B, L, M-1), tau (B, L), mu_up (M-1,), ``boundary`` (B, M-1) the
+    surface BC row I(τ_{L-1}, µ), idx_up / idx_down (B,)."""
+    L = tau.shape[-1]
+    dtau = torch.diff(tau, dim=-1)[..., None]
+    att = torch.exp(-dtau / mu_up)
+    c = 0.5 * dtau / mu_up * (jn_up[..., :-1, :] + jn_up[..., 1:, :] * att)
+    t = torch.arange(L - 1, device=tau.device)
+    join = (t == idx_down[..., None]) | (t == idx_up[..., None] - 1)
+    c = torch.where(join[..., None], 0.0, c)
+    a = torch.cat([att, torch.ones_like(att[..., :1, :])], dim=-2)
+    b = torch.cat([c, boundary[..., None, :]], dim=-2)
+    return _affine_scan(a, b, reverse=True, method=method)
+
+
+# --------------------------------------------------------------------------
+# Small-µ downward asymptotics (|µ| < MU_THRESHOLD)
+# --------------------------------------------------------------------------
+
+def small_mu_window(tau, idx_up, idx_down, mu_small):
+    """Loop invariants of the windowed/Taylor small-µ values, per column.
+
+    The window of layer t starts at k0 = max(region start, first layer
+    with τ ≥ τ_t − 5|µ|), the region starts being 0, idx_up and
+    idx_down+1 (main_lambertian.py:336/355/374).  tau (B, L), idx_* (B,),
+    mu_small (S,).  Returns (k0 (B, L, S), att_k0 = e^{(τ_t−τ_k0)/µ}
+    (B, L, S), prev_t (L,), taylor_den (B, L, 1), taylor_on (B, L, 1)).
+    """
+    B, L = tau.shape
+    t_idx = torch.arange(L, device=tau.device)
+    iu, idn = idx_up[:, None], idx_down[:, None]
+    region_start = torch.where(t_idx < iu, 0, torch.where(t_idx <= idn, iu, idn + 1))
+    cutoff = tau[:, :, None] - 5.0 * torch.abs(mu_small)
+    first = torch.searchsorted(tau.contiguous(), cutoff.reshape(B, -1).contiguous(),
+                               side="left").reshape(cutoff.shape)
+    k0 = torch.minimum(torch.maximum(first, region_start[:, :, None]),
+                       t_idx[None, :, None])
+    tau_k0 = torch.gather(tau[:, :, None].expand(k0.shape), 1, k0)
+    att_k0 = torch.exp(torch.clamp((tau[:, :, None] - tau_k0) / mu_small,
+                                   EXP_CLAMP, 0.0))
+    prev_t = torch.clamp(t_idx - 1, 0, L - 1)
+    taylor_den = torch.where(t_idx[None, :, None] > 0,
+                             (tau - tau[:, prev_t])[:, :, None], 1.0)
+    taylor_on = (t_idx[None, :] > region_start)[:, :, None]
+    return k0, att_k0, prev_t, taylor_den, taylor_on
+
+
+def small_mu_values(jn_small, raw_small, mu_small, taylor_mask, window):
+    """Windowed (|µ| ≥ 0.001) or Taylor (|µ| < 0.001) downward radiance of
+    the small-µ columns from the standard scan's values ``raw_small`` and
+    the sources ``jn_small`` (B, L, S), with ``window`` from
+    :func:`small_mu_window`.
+
+    KEY IDENTITY: the windowed trapezoid is a prefix difference of the full
+    telescoped integral, I_window(t) = raw(t) − e^{(τ_t−τ_k0)/µ}·raw(k0);
+    the Taylor limit is I ≈ −J + µ dJ/dτ (In_limit.py:79-93)."""
+    k0, att_k0, prev_t, taylor_den, taylor_on = window
+    windowed = raw_small - att_k0 * torch.gather(raw_small, 1, k0)
+    dj = torch.where(taylor_on, (jn_small - jn_small[:, prev_t]) / taylor_den, 0.0)
+    taylor = -jn_small + mu_small * dj
+    return torch.where(taylor_mask, taylor, windowed)
+
+
+def down_small_mu(jn_small, raw_small, tau, mu_small, taylor_mask,
+                  idx_up, idx_down):
+    """Windowed/Taylor downward radiance for the static small-µ columns
+    (SOS_Aer_In_limit.py:70-109 with the drivers' region slice starts).
+    jn_small / raw_small (B, L, S), tau (B, L), mu_small (S,), taylor_mask
+    (S,) bool, idx_* (B,)."""
+    window = small_mu_window(tau, idx_up, idx_down, mu_small)
+    return small_mu_values(jn_small, raw_small, mu_small, taylor_mask, window)
+
+
+# --------------------------------------------------------------------------
+# µ→0⁺ smoothing
+# --------------------------------------------------------------------------
+
+def smooth_up_rows(i_up_rows, mu, nb_angles):
+    """Vectorized µ→0⁺ smoothing walk (main_lambertian.py:405-411).
+
+    i_up_rows: (..., 2M) full rows (only columns ≥ M are touched); mu (2M,).
+    For each row: find the first m ≥ M+1 whose second difference is
+    ≤ 1e-4 (m = 2M−3 when there is none), set idx = m+1, and linearly
+    blend columns (M, idx) between I[M] and I[idx] with weight µ/µ_idx.
+    The row's values at idx are picked by one-hot reductions over the
+    angle axis, as in the TPU package.
+    """
+    m = nb_angles
+    up = i_up_rows
+    m2 = up.shape[-1]
+    d = torch.abs((up[..., m + 1:m2 - 2] - up[..., m + 2:m2 - 1])
+                  - (up[..., m + 2:m2 - 1] - up[..., m + 3:m2]))  # walk at m+1..2M-3
+    ok = d <= SMOOTH_TOL
+    first = torch.argmax(ok.to(torch.uint8), dim=-1)            # first stop
+    stop = torch.where(ok.any(dim=-1), first + m + 1, m2 - 3)
+    idx = (stop + 1)[..., None]                                 # blend endpoint
+    cols = torch.arange(m2, device=up.device)
+    onehot = (cols == idx).to(up.dtype)
+    i_val = torch.sum(up * onehot, dim=-1, keepdim=True)
+    mu_idx = torch.sum(mu * onehot, dim=-1, keepdim=True)
+    weight = mu / mu_idx
+    blended = (1.0 - weight) * up[..., m:m + 1] + weight * i_val
+    do = (cols >= m + 1) & (cols < idx)
+    return torch.where(do, blended, up)

@@ -1,12 +1,12 @@
 """Batched solving on one GPU: scene broadcast, sort keys, buckets.
 
-Counterpart of ``sos_rt_tpu/parallel/mesh.py`` for ``engine='mega'`` and
-``engine='fused'`` on a single device.  A batch that fails
+Counterpart of ``sos_rt_tpu/parallel/mesh.py`` for the three engines on a
+single device: ``engine='reference'`` (the default, the batched
+``solve_column``), ``'fused'`` and ``'mega'``.  A batch that fails
 :func:`mega_small_ok` goes from the mega engine to the fused engine as a
 whole, as in the TPU package.  Meshes (column data parallelism over several
-GPUs) and the reference engine raise
-:class:`~sos_rt_tpu_torch.config.NotPortedError` until their slices land
-(ROADMAP.md).
+GPUs) raise :class:`~sos_rt_tpu_torch.config.NotPortedError` until their
+slice lands (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 
 from sos_rt_tpu_torch.config import (GridSpec, NotPortedError, Scene,
                                      SolverOptions, resolve_device)
-from sos_rt_tpu_torch.solver import PhaseTables
+from sos_rt_tpu_torch.solver import PhaseTables, solve_batch_reference
 
 
 def broadcast_scene(scene: Scene, batch: int, device=None) -> Scene:
@@ -66,27 +66,22 @@ def mega_small_ok(scenes: Scene, grid: GridSpec) -> bool:
 
 def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                 opts: SolverOptions, mesh=None, buckets: int = 1,
-                engine: str = "mega", block_b: int = 16, outputs: str = "full",
+                engine: str = "reference", block_b: int = 16, outputs: str = "full",
                 cols_per_block: int | None = None, sort: str = "score",
                 device=None):
     """Solve a batch of columns on one GPU.
 
-    ``engine`` defaults to 'mega', where the JAX package's
-    ``solve_batch`` defaults to 'reference': the reference engine
-    (``solve_column`` batched) is not ported yet, and ``engine='reference'``
-    raises NotPortedError.  So a call that omits ``engine`` runs another
-    engine than the JAX package's: in float32 the mega engine's bf16x3
-    split products (``opts.mm=None``) where the reference runs
-    full-precision ones, and order counts may differ in up to 0.1% of
-    columns (a ratio within rounding of the 100 ppm line); float64 results
-    agree to rtol 1e-9.
-
-    ``engine='mega'``: the whole-solve engine (resident or streamed, as
-    fused.resolve_stream picks for the grid).  When a column's polyfit band
-    does not cover the grid's small-µ columns (:func:`mega_small_ok` false)
-    the whole batch runs the fused engine instead; the kernels' launch
-    counts show which ran.  ``engine='fused'``: the fused engine
-    (fused.solve_batch_fused), full outputs only.
+    ``engine='reference'`` (default): the reference engine
+    (solver.solve_batch_reference, ``solve_column`` of every column in one
+    batch), full outputs with ``i1``.  ``engine='mega'``: the whole-solve
+    engine (resident or streamed, as fused.resolve_stream picks for the
+    grid).  When a column's polyfit band does not cover the grid's small-µ
+    columns (:func:`mega_small_ok` false) the whole batch runs the fused
+    engine instead; the kernels' launch counts show which ran.
+    ``engine='fused'``: the fused engine (fused.solve_batch_fused), full
+    outputs only.  In float32 with ``opts.mm=None`` the mega engine runs
+    bf16x3 split products and the other two full-precision ones, as in the
+    JAX package.
 
     scenes: Scene with (B,) fields (see :func:`broadcast_scene`).
     ``buckets > 1`` sorts the columns by the order-count key and solves
@@ -105,9 +100,6 @@ def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     if engine not in ("reference", "fused", "mega"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected 'reference', 'fused' or 'mega'")
-    if engine == "reference":
-        raise NotPortedError("engine='reference' is not ported yet; "
-                             "engine='mega' and engine='fused' run (see ROADMAP.md)")
     if outputs != "full" and engine != "mega":
         raise ValueError("outputs='summary' requires engine='mega'")
     if mesh is not None:
@@ -122,9 +114,11 @@ def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
         kw = dict(outputs=outputs, cols_per_block=cols_per_block,
                   allow_small=mega_small_ok(scenes, grid), device=device)
         one = lambda s, t, srt: solve_batch_mega(s, t, grid, opts, sort=srt, **kw)
-    else:
+    elif engine == "fused":
         one = lambda s, t, srt: solve_batch_fused(s, t, grid, opts, block_b=block_b,
                                                   device=device)
+    else:
+        one = lambda s, t, srt: solve_batch_reference(s, t, grid, opts, device=device)
     if buckets <= 1:
         return one(scenes, tables, "predict" if sort == "predict" else True)
     b = scenes.mu0.shape[0]

@@ -106,17 +106,26 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
     (coarse-grid order-count pre-solve; the proxy when that does not
     apply) or 'score' (the closed-form proxy).
 
-    ``save_orders`` (per-order rows through the reference engine) and
-    ``mesh`` (multi-GPU) are not ported yet and raise ``NotPortedError``.
+    ``save_orders``: also record each column's per-order TOA/surface rows
+    and their validity (the reference's ``I_saved`` read-set,
+    main_lambertian.py:460) as ``orders_toa`` / ``orders_surface``
+    (B, max_orders, 2M) and ``order_valid`` (B, max_orders) in the shards.
+    It solves through :func:`sos_rt_tpu_torch.solver.solve_batch_orders`,
+    the batched reference engine: ``engine``, ``buckets`` and ``sort`` are
+    ignored, as in the TPU package, and the throughput is the reference
+    engine's.  It needs ``chunk > 0`` and ``out_dir`` (the per-order
+    arrays leave only through the shards; ``ValueError`` otherwise).
+
+    ``mesh`` (multi-GPU) is not ported yet and raises ``NotPortedError``.
     ``device`` defaults to CUDA.
     """
     from sos_rt_tpu_torch.fused import take_columns
     from sos_rt_tpu_torch.parallel import solve_batch
+    from sos_rt_tpu_torch.solver import solve_batch_orders
 
-    if save_orders:
-        raise NotPortedError("save_orders=True needs the reference engine's "
-                             "solve_batch_orders, which is not ported yet; "
-                             "see ROADMAP.md")
+    if save_orders and (chunk <= 0 or out_dir is None):
+        raise ValueError("save_orders=True requires chunk > 0 and an out_dir "
+                         "(the per-order arrays are written to the npz shards)")
     if mesh is not None:
         raise NotPortedError("mesh= (multi-GPU column sharding) is not "
                              "ported yet; see ROADMAP.md")
@@ -124,15 +133,23 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
     log = log or (lambda msg: None)
 
     def solve(part, part_tbl):
+        """→ (solution, extra per-column shard arrays)."""
+        if save_orders:
+            sol, orders, valid = solve_batch_orders(part, part_tbl, preset.grid,
+                                                    preset.opts, device=device)
+            to_np = lambda x: x.detach().cpu().numpy()
+            return sol, {"orders_toa": to_np(orders[:, :, 0]),
+                         "orders_surface": to_np(orders[:, :, 1]),
+                         "order_valid": to_np(valid)}
         sol = solve_batch(part, part_tbl, preset.grid, preset.opts,
                           engine=engine, outputs=outputs, buckets=buckets,
                           block_b=block_b, sort=sort, device=device)
-        return _metrics.block_until_ready(sol)
+        return _metrics.block_until_ready(sol), {}
 
     scenes, tables = build_sweep_batch(preset, batch, seed, mu0_pool, device=device)
     if chunk <= 0 or out_dir is None:
         t0 = time.perf_counter()
-        sol = solve(scenes, tables)
+        sol, _ = solve(scenes, tables)
         m = _metrics.solution_metrics(sol, time.perf_counter() - t0)
         m["engine"] = engine
         m["outputs"] = outputs
@@ -146,7 +163,7 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
     g, o = preset.grid, preset.opts
     spec = {"preset": preset.name, "batch": batch, "seed": seed,
             "mu0_pool": mu0_pool, "chunk": chunk, "engine": engine,
-            "outputs": outputs, "save_orders": False,
+            "outputs": outputs, "save_orders": bool(save_orders),
             "grid": {"nb_angles": g.nb_angles, "nb_layers": g.nb_layers,
                      "spacing": g.spacing},
             "opts": {"surface": o.surface, "dtype": o.dtype,
@@ -172,13 +189,13 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
             continue
         sl = slice(i * chunk, min((i + 1) * chunk, batch))
         t0 = time.perf_counter()
-        sol = solve(take_columns(scenes, sl), tables.take(sl))
+        sol, extra = solve(take_columns(scenes, sl), tables.take(sl))
         dt = time.perf_counter() - t0
         wall += dt
         solved_cols += sl.stop - sl.start
         # np.savez appends .npz if missing: keep the suffix on the temp
         tmp = _shard_path(out_dir, i)[:-4] + ".tmp.npz"
-        np.savez_compressed(tmp, **_summary_arrays(sol))
+        np.savez_compressed(tmp, **_summary_arrays(sol), **extra)
         os.replace(tmp, _shard_path(out_dir, i))
         done.add(i)
         index = {"spec": spec, "n_chunks": n_chunks, "completed": sorted(done)}
@@ -194,8 +211,8 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
         if stop_after_chunks and solved_now >= stop_after_chunks:
             break
 
-    m: Dict[str, Any] = {"engine": engine, "outputs": outputs,
-                         "n_chunks": n_chunks, "n_completed": len(done),
+    m: Dict[str, Any] = {"engine": "orders" if save_orders else engine,
+                         "outputs": outputs, "n_chunks": n_chunks, "n_completed": len(done),
                          "complete": len(done) == n_chunks}
     if len(done) == n_chunks:
         res = load_sweep(out_dir)

@@ -112,17 +112,39 @@ def test_kernels_match_plain(cuda, surface, dtype, mm, tol):
 @pytest.mark.parametrize("surface", ["lambertian", "specular"])
 def test_slice_on_card_matches_cpu(cuda, surface):
     opts = SolverOptions(surface=surface, dtype="float64")
-    got = solve_batch(*_inputs(cuda, torch.float64), GRID, opts, device=cuda)
+    got = solve_batch(*_inputs(cuda, torch.float64), GRID, opts, engine="mega",
+                      device=cuda)
     cpu = torch.device("cpu")
     scenes, tables = _inputs(cuda, torch.float64)
     want = solve_batch(scenes.map(lambda x: x.cpu()),
                        PhaseTables(tables.p0_atm.cpu(), tables.p_atm.cpu(),
                                    tables.p0_aer.cpu(), tables.p_aer.cpu()),
-                       GRID, opts, device=cpu)
+                       GRID, opts, engine="mega", device=cpu)
     assert torch.equal(got.n_orders.cpu(), want.n_orders)
     scale = float(want.i_total.abs().max())
     torch.testing.assert_close(got.i_total.cpu(), want.i_total, rtol=1e-9,
                                atol=1e-11 * scale)
+
+
+@pytest.mark.parametrize("scan_impl", ["associative", "sequential"])
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+def test_reference_engine_on_card_matches_cpu(cuda, surface, scan_impl):
+    """The reference engine (plain PyTorch, no kernel) on the card against
+    the CPU in float64: equal order counts, rtol 1e-9."""
+    opts = SolverOptions(surface=surface, dtype="float64", scan_impl=scan_impl)
+    ms.reset_launches()
+    got = solve_batch(*_inputs(cuda, torch.float64), GRID, opts, device=cuda)
+    assert not any(k.launches for k in ms.ALL_KERNELS)
+    scenes, tables = _inputs(cuda, torch.float64)
+    want = solve_batch(scenes.map(lambda x: x.cpu()),
+                       PhaseTables(tables.p0_atm.cpu(), tables.p_atm.cpu(),
+                                   tables.p0_aer.cpu(), tables.p_aer.cpu()),
+                       GRID, opts, device=torch.device("cpu"))
+    assert torch.equal(got.n_orders.cpu(), want.n_orders)
+    for name in ("i_total", "i1"):
+        w = getattr(want, name)
+        torch.testing.assert_close(getattr(got, name).cpu(), w, rtol=1e-9,
+                                   atol=1e-11 * float(w.abs().max()))
 
 
 def test_wrappers_count_launches(cuda):

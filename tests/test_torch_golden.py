@@ -5,10 +5,11 @@ Each fixture (tests/golden/*_mid.npz, made once from the NumPy oracle) is
 one column on a 201-angle × 304-layer grid.  The port solves it on the CPU
 in float64 with the mega engine's resident execution
 (``solve_batch_mega(stream=False)``, the plain version of the whole-loop
-kernel) and with the fused engine (``solve_batch(engine='fused')``), and
-must reproduce it as the JAX solver does: the oracle's order count, and
-I_total (and the fused engine's I₁) within test_golden.py's rtol 1e-5,
-atol 1e-7·scale (the port agrees to ~1e-14 of scale).  The mega engine's
+kernel), with the fused engine (``solve_batch(engine='fused')``) and with
+the reference engine (``solve_batch(engine='reference')``), and must
+reproduce it as the JAX solver does: the oracle's order count, and I_total
+(and the fused and reference engines' I₁) within test_golden.py's rtol
+1e-5, atol 1e-7·scale (the port agrees to ~1e-14 of scale).  The mega engine's
 full outputs carry no I₁ (``i1='host'`` is not ported).  The eva and
 wildfire fixtures need the Mie models, which are not ported yet.
 """
@@ -54,11 +55,11 @@ def _solve(name, engine):
         sol = solve_batch_mega(scenes, tables, grid, opts, outputs="full",
                                allow_small=True, stream=False, device=CPU)
     else:
-        sol = solve_batch(scenes, tables, grid, opts, engine="fused", device=CPU)
+        sol = solve_batch(scenes, tables, grid, opts, engine=engine, device=CPU)
     return sol, gold_i, gold_i1, n
 
 
-@pytest.mark.parametrize("engine", ["mega", "fused"])
+@pytest.mark.parametrize("engine", ["mega", "fused", "reference"])
 @pytest.mark.parametrize("name", FIXTURES)
 def test_port_matches_golden(name, engine):
     sol, gold_i, gold_i1, n = _solve(name, engine)
@@ -67,6 +68,6 @@ def test_port_matches_golden(name, engine):
     scale = np.abs(gold_i).max()
     np.testing.assert_allclose(sol.i_total[0].numpy(), gold_i, rtol=1e-5,
                                atol=1e-7 * scale)
-    if engine == "fused":
+    if engine != "mega":
         np.testing.assert_allclose(sol.i1[0].numpy(), gold_i1, rtol=1e-5,
                                    atol=1e-7 * scale)

@@ -364,7 +364,6 @@ def test_solver_options_mm_docstring_names_each_engines_default():
 
 def test_solve_batch_docstring_states_the_default_engine():
     sig = inspect.signature(solve_batch)
-    assert sig.parameters["engine"].default == "mega"
+    assert sig.parameters["engine"].default == "reference"      # as in the JAX package
     doc = " ".join(inspect.getdoc(solve_batch).split())
-    assert "``engine`` defaults to 'mega', where the JAX package's ``solve_batch`` " \
-           "defaults to 'reference'" in doc
+    assert "``engine='reference'`` (default): the reference engine" in doc

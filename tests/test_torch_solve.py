@@ -6,8 +6,9 @@ order counts and rtol 1e-9 / atol 1e-11·scale — the contract of
 tests/test_megastream.py — for both surfaces, a ragged batch, an odd
 angle count and a canonical-like small-µ grid.  Also: summary rows equal
 full rows, results do not depend on the sort or the block size, the
-routes outside the port raise (and the fused engine takes what the mega path
-cannot), and the package imports neither jax nor
+routes outside the port raise (the reference engine, the default, and the
+fused engine equal the mega engine, and the fused engine takes what the mega
+path cannot), and the package imports neither jax nor
 sos_rt_tpu.  (The comparisons with the JAX mega engine in float32 and
 with its order-count predictor are in tests/test_torch_jax_mega.py.)
 """
@@ -25,7 +26,7 @@ import torch
 from sos_rt_tpu.config import GridSpec as JGrid, SolverOptions as JOpts
 from sos_rt_tpu.parallel import solve_batch as j_solve_batch
 from sos_rt_tpu.parallel.mesh import mega_small_ok as j_mega_small_ok
-from sos_rt_tpu_torch import NotPortedError, convert
+from sos_rt_tpu_torch import NotPortedError, SolverOptions, convert
 from sos_rt_tpu_torch.fused import solve_batch_mega
 from sos_rt_tpu_torch.parallel import solve_batch
 from sos_rt_tpu_torch.parallel.mesh import mega_small_ok
@@ -102,8 +103,8 @@ def test_independent_of_sort_and_block_size(tables56):
 def test_buckets_match_single_solve(tables56):
     opts = JOpts(surface="lambertian", dtype="float64")
     port = port_inputs(jax_scenes(4), tables56, GRID, opts)
-    one = solve_batch(*port, outputs="summary", device="cpu")
-    two = solve_batch(*port, outputs="summary", buckets=2, device="cpu")
+    one = solve_batch(*port, engine="mega", outputs="summary", device="cpu")
+    two = solve_batch(*port, engine="mega", outputs="summary", buckets=2, device="cpu")
     assert torch.equal(one.n_orders, two.n_orders)
     assert_close_scaled(two.i_toa.numpy(), one.i_toa.numpy(), rtol=1e-13, atol_scale=1e-15)
 
@@ -152,13 +153,17 @@ def test_routes_outside_the_slice_raise(tables56):
 
     opts = JOpts(surface="lambertian", dtype="float64")
     port = port_inputs(jax_scenes(2), tables56, GRID, opts)
-    _raises_not_ported(lambda: solve_batch(*port, engine="reference", device="cpu"))
-    # the fused engine is ported: it runs, and equals the mega engine
-    fused = solve_batch(*port, engine="fused", device="cpu")
+    # the reference engine is ported and the default: it runs, and equals
+    # the mega engine; so does the fused engine
     mega = solve_batch(*port, engine="mega", device="cpu")
-    assert torch.equal(fused.n_orders, mega.n_orders) and fused.i1 is not None
-    assert_close_scaled(fused.i_total.numpy(), mega.i_total.numpy(), rtol=1e-9,
-                        atol_scale=1e-11)
+    for engine in ("reference", None, "fused"):
+        kw = {} if engine is None else dict(engine=engine)
+        other = solve_batch(*port, device="cpu", **kw)
+        assert torch.equal(other.n_orders, mega.n_orders) and other.i1 is not None
+        assert_close_scaled(other.i_total.numpy(), mega.i_total.numpy(), rtol=1e-9,
+                            atol_scale=1e-11)
+    with pytest.raises(ValueError, match="summary"):
+        solve_batch(*port, outputs="summary", device="cpu")
     _raises_not_ported(lambda: solve_batch(*port, mesh=object(), device="cpu"))
     _raises_not_ported(lambda: solve_batch(*port, engine="fused", mesh=object(),
                                            device="cpu"))
@@ -179,7 +184,7 @@ def test_routes_outside_the_slice_raise(tables56):
     port_thin = port_inputs(thin, jax_tables(small), small, opts)
     assert not mega_small_ok(port_thin[0], port_thin[2])
     assert not j_mega_small_ok(thin, small)
-    got = solve_batch(*port_thin, device="cpu")
+    got = solve_batch(*port_thin, engine="mega", device="cpu")
     ref = j_solve_batch(thin, jax_tables(small), small, opts)
     np.testing.assert_array_equal(got.n_orders.numpy(), np.asarray(ref.n_orders))
     assert_close_scaled(got.i_total.numpy(), ref.i_total, rtol=1e-9, atol_scale=1e-11)
@@ -198,8 +203,10 @@ def test_options_carry_across():
     for o in (JOpts(), JOpts(surface="specular", dtype="float32", mm="bf16x5",
                               max_orders=7, tol=1e-5)):
         t = convert.options_from(o)
-        assert (t.surface, t.max_orders, t.tol, t.dtype, t.mm) == (
-            o.surface, o.max_orders, o.tol, o.dtype, o.mm)
+        assert (t.surface, t.max_orders, t.tol, t.dtype, t.scan_impl, t.mm) == (
+            o.surface, o.max_orders, o.tol, o.dtype, o.scan_impl, o.mm)
+    seq = convert.options_from(JOpts(scan_impl="sequential"))
+    assert seq.scan_impl == "sequential" and SolverOptions().scan_impl == "associative"
     with pytest.raises(ValueError):
         dataclasses.replace(convert.options_from(JOpts()), mm="bf16x4")
 
@@ -247,7 +254,7 @@ def test_per_column_mu0_tables():
     opts = JOpts(surface="lambertian", dtype="float64")
     ref = j_solve_batch(scenes, tables, GRID, opts)
     port = port_inputs(scenes, tables, GRID, opts)
-    got = solve_batch(*port, cols_per_block=2, device="cpu")
+    got = solve_batch(*port, engine="mega", cols_per_block=2, device="cpu")
     np.testing.assert_array_equal(got.n_orders.numpy(), np.asarray(ref.n_orders))
     assert_close_scaled(got.i_total.numpy(), ref.i_total, rtol=1e-9, atol_scale=1e-11)
     built = PhaseTables.from_models_batched_mu0(

@@ -5,8 +5,9 @@ small patched ``fwc_sweep`` preset: chunked shards that
 ``sos_rt_tpu.sweep.load_sweep`` reads, kill-and-resume, the spec check,
 per-column µ0 tables; the port's batch carried to the JAX package as numpy
 and solved there by ``solve_batch(engine='mega')`` in float64 gives the
-same rows (rtol 1e-9, the engines' contract); and the ``sweep`` / ``list``
-/ ``run`` commands of ``python -m sos_rt_tpu_torch``.
+same rows (rtol 1e-9, the engines' contract); ``save_orders`` shards equal
+the JAX package's; and the ``sweep`` / ``list`` commands of ``python -m
+sos_rt_tpu_torch``, with the routes that still exit as not ported.
 """
 import dataclasses
 import json
@@ -100,8 +101,8 @@ def test_chunked_sweep_resume_and_spec_check(small, tmp_path):
     assert again["complete"] and "wall_s" not in again
     # the chunked rows equal one solve of the whole batch
     scenes, tables = build_sweep_batch(small, 10, seed=1, mu0_pool=2, device="cpu")
-    whole = solve_batch(scenes, tables, small.grid, small.opts, outputs="summary",
-                        sort="predict", device="cpu")
+    whole = solve_batch(scenes, tables, small.grid, small.opts, engine="mega",
+                        outputs="summary", sort="predict", device="cpu")
     np.testing.assert_array_equal(res["n_orders"], whole.n_orders.numpy())
     np.testing.assert_array_equal(res["i_toa"], whole.i_toa.numpy())
     # index layout of the TPU package
@@ -129,20 +130,81 @@ def test_unchunked_sweep_returns_metrics(small):
 
 
 def test_routes_of_the_sweep_not_ported_yet(small, tmp_path):
-    with pytest.raises(NotPortedError, match="save_orders"):
-        run_sweep(small, 4, chunk=2, out_dir=str(tmp_path / "o"), save_orders=True,
-                  device="cpu")
     with pytest.raises(NotPortedError, match="mesh"):
         run_sweep(small, 4, mesh=object(), device="cpu")
-    with pytest.raises(NotPortedError):
-        run_sweep(small, 4, engine="reference", device="cpu")
+    with pytest.raises(NotPortedError, match="mesh"):
+        run_sweep(small, 4, chunk=2, out_dir=str(tmp_path / "o"), save_orders=True,
+                  mesh=object(), device="cpu")
+    # save_orders writes its arrays only to shards, as in the TPU package
+    for kw in (dict(), dict(chunk=2), dict(out_dir=str(tmp_path / "o"))):
+        with pytest.raises(ValueError, match="save_orders"):
+            run_sweep(small, 4, save_orders=True, device="cpu", **kw)
     assert not os.path.exists(tmp_path / "o")
+
+
+def test_save_orders_shards_equal_jax(tmp_path):
+    """save_orders: the per-order TOA/surface rows and their validity in the
+    shards equal the JAX package's solve_batch_orders of the same batch
+    (carried across as numpy), chunk by chunk, the short last chunk too."""
+    from sos_rt_tpu.solver import solve_batch_orders as j_solve_batch_orders
+
+    p = dataclasses.replace(_small(dtype="float64"),
+                            opts=SolverOptions(dtype="float64", max_orders=12))
+    out = str(tmp_path / "orders")
+    m = run_sweep(p, 5, seed=4, mu0_pool=2, chunk=3, out_dir=out, save_orders=True,
+                  engine="mega", device="cpu")
+    assert m["engine"] == "orders" and m["complete"] and m["batch"] == 5
+    with open(os.path.join(out, "index.json")) as f:
+        assert json.load(f)["spec"]["save_orders"] is True
+    res, jres = load_sweep(out), j_load_sweep(out)
+    assert sorted(res) == ["converged", "i_surface", "i_toa", "n_orders", "order_valid",
+                           "orders_surface", "orders_toa"]
+    for k in res:
+        np.testing.assert_array_equal(res[k], jres[k])
+    assert res["orders_toa"].shape == (5, 12, 64) and res["order_valid"].shape == (5, 12)
+    scenes, tables = build_sweep_batch(p, 5, seed=4, mu0_pool=2, device="cpu")
+    jscenes = JScene(**{f: jnp.asarray(getattr(scenes, f).numpy()) for f in SCENE_FIELDS})
+    jtables = JTables(*(jnp.asarray(getattr(tables, f.name).numpy())
+                        for f in dataclasses.fields(tables)))
+    sol, orders, valid = j_solve_batch_orders(
+        jscenes, jtables, JGrid(32, 48), JOpts(surface="lambertian", dtype="float64",
+                                               max_orders=12))
+    np.testing.assert_array_equal(res["order_valid"], np.asarray(valid))
+    np.testing.assert_array_equal(res["n_orders"], np.asarray(sol.n_orders))
+    np.testing.assert_array_equal(res["converged"], np.asarray(sol.converged))
+    for k, r in (("orders_toa", 0), ("orders_surface", 1)):
+        assert_close_scaled(res[k], np.asarray(orders)[:, :, r], rtol=1e-9, atol_scale=1e-11)
+    assert_close_scaled(res["i_toa"], np.asarray(sol.i_total)[:, 0], rtol=1e-9,
+                        atol_scale=1e-11)
+    # the per-order rows add up to the total rows
+    np.testing.assert_allclose(res["orders_toa"].sum(1), res["i_toa"], rtol=1e-10,
+                               atol=1e-13)
+
+
+def test_sweep_cmd_save_orders_and_reference_engine(small, tmp_path, capsys):
+    out = str(tmp_path / "o")
+    main(["sweep", "--batch", "4", "--chunk", "2", "--mu0-pool", "2", "--save-orders",
+          "--device", "cpu", "-o", out])
+    m = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["sweep_metrics"]
+    assert m["engine"] == "orders" and m["n_chunks"] == 2 and m["complete"]
+    res = load_sweep(out)
+    assert res["orders_toa"].shape == (4, 40, 64) and res["order_valid"][:, 0].all()
+    np.testing.assert_array_equal(res["order_valid"].sum(1), res["n_orders"])
+    # the reference engine through the command, full outputs
+    ref = str(tmp_path / "r")
+    main(["sweep", "--batch", "4", "--mu0-pool", "2", "--engine", "reference",
+          "--device", "cpu", "-o", ref])
+    m = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["sweep_metrics"]
+    assert m["engine"] == "reference" and m["outputs"] == "full" and m["complete"]
+    rows = load_sweep(ref)
+    np.testing.assert_array_equal(rows["n_orders"], res["n_orders"])
+    np.testing.assert_allclose(rows["i_toa"], res["i_toa"], rtol=1e-5, atol=1e-7)
 
 
 def test_block_until_ready_returns_the_solution(small):
     scenes, tables = build_sweep_batch(small, 2, device="cpu")
-    sol = solve_batch(scenes, tables, small.grid, small.opts, outputs="summary",
-                      block_b=16, device="cpu")
+    sol = solve_batch(scenes, tables, small.grid, small.opts, engine="mega",
+                      outputs="summary", block_b=16, device="cpu")
     assert metrics.block_until_ready(sol) is sol
 
 
@@ -151,7 +213,7 @@ def test_sweep_batch_solved_by_the_jax_package():
     numpy, through the JAX mega engine (Pallas interpreter) in float64."""
     p = _small(dtype="float64")
     scenes, tables = build_sweep_batch(p, 4, seed=5, mu0_pool=3, device="cpu")
-    got = solve_batch(scenes, tables, p.grid, p.opts, outputs="summary",
+    got = solve_batch(scenes, tables, p.grid, p.opts, engine="mega", outputs="summary",
                       cols_per_block=2, device="cpu")
     jscenes = JScene(**{f: jnp.asarray(getattr(scenes, f).numpy()) for f in SCENE_FIELDS})
     jtables = JTables(*(jnp.asarray(getattr(tables, f.name).numpy())
@@ -214,18 +276,23 @@ def test_list_cmd(capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["run", "--preset", "hg", "--mu0", "0.6", "-o", "x.npz"], "solve_column"),
-    (["critical-albedo", "--tau-aer", "0.1,0.2", "--num", "4"], "forcing"),
+    (["run", "--preset", "eva", "--device", "cpu", "-o", "x.npz"], "Mie"),
+    (["critical-albedo", "--tau-aer", "0.1,0.2", "--num", "4", "--device", "cpu"],
+     "Mie"),
     (["sweep", "--mesh", "--device", "cpu"], "mesh"),
-    (["sweep", "--save-orders", "--batch", "4", "--device", "cpu"], "save_orders"),
-    (["sweep", "--engine", "reference", "--batch", "4", "--device", "cpu"], "reference"),
+    (["run", "--preset", "wildfire", "--device", "cpu", "-o", "x.npz"], "Mie"),
+    (["sweep", "--engine", "reference", "--mesh", "--batch", "4", "--device", "cpu"],
+     "mesh"),
 ])
-def test_commands_not_ported_exit_with_the_message(small, argv, what, capsys):
+def test_commands_not_ported_exit_with_the_message(small, argv, what, capsys,
+                                                   tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert "not ported yet" in str(e.value) and what in str(e.value)
     assert e.value.code not in (0, None)
     assert capsys.readouterr().out == ""
+    assert not os.listdir(tmp_path)
 
 
 def test_module_entry_point_lists():
@@ -236,6 +303,7 @@ def test_module_entry_point_lists():
     out = subprocess.run([sys.executable, "-m", "sos_rt_tpu_torch", "list"], cwd=repo,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "presets:" in out.stdout
-    bad = subprocess.run([sys.executable, "-m", "sos_rt_tpu_torch", "run"], cwd=repo,
-                         capture_output=True, text=True, timeout=120)
+    bad = subprocess.run([sys.executable, "-m", "sos_rt_tpu_torch", "run", "--device",
+                          "cpu", "-o", os.devnull], cwd=repo, capture_output=True,
+                         text=True, timeout=120)
     assert bad.returncode != 0 and "not ported yet" in bad.stderr
