@@ -14,7 +14,8 @@ Phases, one JSON line each on stdout:
                  float64 builds), and sos_mega's registers and
                  spills per build: the SIMT builds held equal to
                  MEGA_PTXAS_SIMT, the two tensor-core builds to the
-                 registers of MEGA_PTXAS_TC and at most its spills.
+                 registers of MEGA_PTXAS_TC and at most its spills;
+                 sos_mega_i1in's builds (MEGA_AB_I1IN) beside them.
 2. ``kernels``   each kernel (passI, passA, passB) against its plain
                  PyTorch version on the card at GridSpec(56, 64), B=8:
                  float64 'highest' within 1e-12 of scale, float32
@@ -85,12 +86,24 @@ Phases, one JSON line each on stdout:
                  shards loaded back: shapes, all finite, all converged, 8
                  columns against the float64 solve on the card;
                  a second call with --resume that solves no shard.
+8. ``i1_host``   the mega engine with the first order from the host
+                 (i1='host'): the 64×128 batch of ``resident`` through
+                 solve_batch_mega(stream=False, sort='predict', i1='host')
+                 (one sos_mega_i1in launch, no passI) against i1='kernel'
+                 (MEGA_BATCH_LIMITS in float32; 8 columns in float64: equal
+                 order counts, rows within 1e-12); sos_mega_i1in against
+                 mega_plain from the same planes on the sorted batch
+                 (MEGA_BATCH_LIMITS), timed in turns beside sos_mega, its
+                 bound (the solve's without I1's product, plus the two
+                 planes read) and the source product's yardstick; the
+                 canonical 501×800 batch, B=256, streamed: no passI,
+                 passA and passB as with the kernels' I1.
 
-8. ``reference_f64`` solve_batch(engine='reference') in float64 on the card
+9. ``reference_f64`` solve_batch(engine='reference') in float64 on the card
                  against the same solve on the CPU at GridSpec(56, 64), B=8,
                  both surfaces, both scan_impl values: equal order counts,
                  I_total and I1 within rtol 1e-9, no kernel launched.
-9. ``reference`` the reference engine at full width: the ``hg`` preset on the
+10. ``reference`` the reference engine at full width: the ``hg`` preset on the
                  501×800 grid, B=64: float32 with full-precision products
                  (mm=None), col/s of a second call (the first's wall
                  beside it), orders and peak memory, 8 columns against
@@ -98,27 +111,37 @@ Phases, one JSON line each on stdout:
                  on the whole batch against solve_batch(engine='mega') in
                  float64 (equal order counts, rtol 1e-9); the sequential
                  scans on 8 columns, timed beside the associative ones.
-10. ``run_cli``  ``python -m sos_rt_tpu_torch run --preset hg -o ...`` in a
-                 process of its own (float64, one column at 501×800): wall
-                 time, order count, every output finite, I against the mega
-                 engine in float64 on the card (rtol 1e-9).
-11. ``critical_albedo`` ``critical-albedo --preset hg --tau-aer 0.02,0.5
-                 --num 16`` through cli.main (mega engine, float32: the
-                 streamed kernels at 501×800, every passI/passA launch on
-                 the tensor cores): wall time, curve, launch counts; then 4
-                 lanes of critical_albedo_batch(engine='mega') in float64
-                 against critical_albedo (the reference engine's
-                 per-column path): the same albedos.
-12. ``sweep_orders`` run_sweep(save_orders=True) on the ``fwc_sweep`` preset,
+11. ``mie_tables`` the eva and wildfire presets' log-normal Mie tables at
+                 501 angles, built anew (cache=False): the wall time of
+                 each, their normalizations, and that the native core
+                 (csrc/miecore.cpp, built with g++) built them.
+12. ``run_cli``  ``python -m sos_rt_tpu_torch run`` in a process of its own
+                 with ``--preset hg``, with no preset (its default, eva) and
+                 with ``--preset wildfire`` (float64, one column at
+                 501×800): wall time, order count, every output finite, I
+                 against the mega engine in float64 on the card (rtol
+                 1e-9).
+13. ``critical_albedo`` ``critical-albedo [--preset hg] --tau-aer 0.02,0.5
+                 --num 16`` through cli.main, on hg and on the default
+                 preset (eva) (mega engine, float32: the streamed kernels
+                 at 501×800, every passI/passA launch on the tensor cores):
+                 wall time, curve, launch counts; then 4 lanes of
+                 critical_albedo_batch(engine='mega') in float64 against
+                 critical_albedo (the reference engine's per-column path):
+                 the same albedos.
+14. ``sweep_orders`` run_sweep(save_orders=True) on the ``fwc_sweep`` preset,
                  4096 columns, one shard, the 64-value µ0 pool: col/s, peak
                  memory; 8 columns' per-order rows against
                  solve_column_orders of each column on the card (equal
                  validity, rows within 1e-5 of scale).
-13. ``fused_f64`` solve_batch(engine='fused') in float64 on the card against
+15. ``single_layer`` tests/test_vdh.py's semi-infinite case (96 × 2400,
+                 τ* = 25, float64) on the card: equal to the CPU (rtol
+                 1e-9) and to the H-function law at µ ≥ 0.3 (rtol 1e-3).
+16. ``fused_f64`` solve_batch(engine='fused') in float64 on the card against
                  the same solve on the CPU, on GridSpec(56, 64) and on the
                  Gauss grid GridSpec(51, 24) with small-µ columns: equal
                  order counts, rtol 1e-9.
-14. ``fused_canonical`` the fused engine's path at full width: the ``hg``
+17. ``fused_canonical`` the fused engine's path at full width: the ``hg``
                  preset on the 501×800 grid at τ*_atm = 0.044 (the molecular
                  optical depth near 670 nm), B=64, float32 bf16x3, entered
                  as solve_batch(engine='mega', outputs='summary'): no
@@ -133,12 +156,12 @@ Phases, one JSON line each on stdout:
                  bytes, no arithmetic);
                  up_sweep_smooth split into its walk, join smoothings and
                  row pass (torch.profiler, by kernel name).
-15. ``fused_sweep`` the 4096-column sweep batch of phase ``resident`` through
+18. ``fused_sweep`` the 4096-column sweep batch of phase ``resident`` through
                  engine='fused' beside the mega engine on the same batch:
                  col/s of both, the share of columns whose order counts
                  differ (limit 0.1%), the sweep kernels at this block
                  (down_sweep to the bit), timed as in ``fused_canonical``.
-16. ``micro_ops`` the tools path: ``python -m sos_rt_tpu_torch.tools.micro_ops``
+19. ``micro_ops`` the tools path: ``python -m sos_rt_tpu_torch.tools.micro_ops``
                  (all 13 patterns, K1 = 128 and K2 = 1024 reps) through its
                  main(), with its launch count; then each pattern's kernel
                  against its plain version at k = 1 and 2 on make_inputs(0),
@@ -146,10 +169,11 @@ Phases, one JSON line each on stdout:
                  on the kernel's first rep): to the bit but for the three
                  products (1e-5 of scale);
                  one library call a rep where one torch call computes it.
-17. ``micro_pass`` ``python -m sos_rt_tpu_torch.tools.micro_pass`` through its
+20. ``micro_pass`` ``python -m sos_rt_tpu_torch.tools.micro_pass`` through its
                  main(); each of the 9 (mode, g) pairs against its plain
                  version to the bit, on the tool's ones and a random field.
-18. ``ablate``   the resident kernel's ablated builds (csrc/mega_ablate.cu):
+21. ``ablate``   the resident kernel's ablated builds (csrc/mega_ablate.cuh,
+                 built by mega_ablate.cu, mega_ablate_f32.cu, mega_ablate_f64.cu):
                  its build of the solve itself (no flag) equal to sos_mega to
                  the bit on the sorted 4096-column sweep batch; each of the
                  13 variants of tools/ablate_kernel.py against
@@ -161,7 +185,8 @@ Phases, one JSON line each on stdout:
                  orders, B=4096) through its main(): where mega_call's time
                  goes.
 
-Then the ``{"kernels": [...]}`` line (eight kernels; max_abs_err over both
+Then the ``{"kernels": [...]}`` line (eight kernels, and sos_mega_i1in
+after mega_call; max_abs_err over both
 paths' blocks; share_of_bound = bound_ms / ms for the sweep and micro
 kernels; for micro_ops and micro_pass the sums over their patterns' K1
 calls and their pairs' calls, with pass_bound_ms, the sum of the per-pass
@@ -191,6 +216,7 @@ REPLACES = {
     "passA": "sos_rt_tpu/ops/megastream.py:85",
     "passB": "sos_rt_tpu/ops/megastream.py:128",
     "mega_call": "sos_rt_tpu/ops/megakernel.py:303",
+    "mega_call_i1in": "sos_rt_tpu/ops/megakernel.py:303",
     "down_sweep": "sos_rt_tpu/ops/pallas_sweeps.py:90",
     "up_sweep_smooth": "sos_rt_tpu/ops/pallas_sweeps.py:167",
     "micro_ops": "tools/micro_ops.py:28",
@@ -261,6 +287,10 @@ MEGA_PTXAS_SIMT = {("float64", "highest", 256): (128, 440),
 # no more:
 MEGA_PTXAS_TC = {("float32", "bf16x3", 256): (128, 72),
                  ("float32", "bf16x5", 256): (128, 96)}
+# the AB bit of mega_body.cuh that builds sos_mega_i1in (the first order
+# from the host); its builds report their registers and spills beside
+# sos_mega's, unchecked
+MEGA_AB_I1IN = 2048
 SPLIT_PASSES = {"bf16x3": 3, "bf16x5": 5, "highest": 1}
 # kernel against plain at a main-path block, float32 bf16x3, relative to
 # each output's largest magnitude: the kernel sums the 3 * 2Mp split
@@ -279,7 +309,13 @@ F32_KERNEL_TOL = 1e-4
 F64_P50_TOL = 1e-3
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -350,12 +386,14 @@ def block_inputs(scenes, tables, grid, opts, device, cols_per_block=None):
 def launch_counts() -> dict:
     """Launches of every kernel wrapper, and of passI / passA / mega_call
     those whose products ran on the tensor cores (``passI_tc``,
-    ``passA_tc``, ``mega_call_tc``)."""
+    ``passA_tc``, ``mega_call_tc``), and of mega_call those of
+    sos_mega_i1in (``mega_call_i1in``)."""
     from sos_rt_tpu_torch.ops import megastream as ms
 
     counts = {k.__name__: k.launches for k in ms.ALL_KERNELS}
     counts.update({f"{k.__name__}_tc": k.tc_launches for k in ms.TC_KERNELS})
     counts["mega_call_tc"] = ms.mega_call.tc_launches
+    counts["mega_call_i1in"] = ms.mega_call.i1in_launches
     return counts
 
 
@@ -392,9 +430,10 @@ def check_path_launches(launches: dict, grid, dtype, phase: str):
 
 
 def mega_vs_plain(pack, cpar, tiles, ops, opts, tol: float, what: str,
-                  f64_batch=None):
+                  f64_batch=None, planes=None):
     """mega_call against mega_plain on the same batch (summary outputs).
-    Returns (max relative error, max absolute error, extra findings).
+    Returns (max relative error, max absolute error, extra findings: among
+    them plain_ms, the wall of the one mega_plain call).
 
     At a few columns: equal order counts and flags, rows within ``tol`` of
     scale.  With ``f64_batch`` (thousands of float32 columns) the whole
@@ -410,30 +449,39 @@ def mega_vs_plain(pack, cpar, tiles, ops, opts, tol: float, what: str,
     ``f64_batch(columns)`` prepares the columns that are off in float64,
     where no sum's last bit reaches a threshold, and there the kernel and
     the plain version must give equal order counts and rows within 1e-12
-    of scale, so the kernel takes the same branches on these very columns."""
+    of scale, so the kernel takes the same branches on these very columns.
+    ``planes`` (the host's I₁ planes, ``MegaBatch.i1_planes()``) start both
+    loops from the same first order (sos_mega_i1in); ``f64_batch`` then
+    prepares its columns with i1='host' too."""
     import torch
 
     from sos_rt_tpu_torch.ops import megakernel as mk
 
+    planes = planes or {}
     kw = dict(tol=float(opts.tol), max_orders=int(opts.max_orders), full=False)
-    got = mk.mega_call(pack, cpar, tiles, ops, **kw)
+    got = mk.mega_call(pack, cpar, tiles, ops, **kw, **planes)
     torch.cuda.synchronize()
-    want = mk.mega_plain(pack, cpar, tiles, ops, **kw)
+    t0 = time.perf_counter()
+    want = mk.mega_plain(pack, cpar, tiles, ops, **kw, **planes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     if not all(bool(torch.isfinite(g).all()) for g in got):
         fail(f"mega_call {what}: non-finite values")
     rel = max(rel_err(g, w) for g, w in zip(got[:4], want[:4]))
     absd = max(float((g - w).abs().max()) for g, w in zip(got[:4], want[:4]))
-    extra = {}
+    extra = {"plain_ms": plain_ms}
     if f64_batch is not None:
-        extra, off = loops_within_limits(got[-1][mk.ST_N], want[-1][mk.ST_N], got[:4],
+        found, off = loops_within_limits(got[-1][mk.ST_N], want[-1][mk.ST_N], got[:4],
                                          want[:4], f"mega_call {what}", tol)
+        extra.update(found)
         cols = torch.nonzero(off)[:, 0]
         extra["columns_off"] = int(cols.numel())
         if cols.numel():
             sb, opts64 = f64_batch(cols)
             extra["columns_off_f64_rel"], _, _ = mega_vs_plain(
                 sb.pack, sb.cpar, sb.tiles, sb.ops, opts64, 1e-12,
-                f"{what}, its {cols.numel()} columns that are off, in float64")
+                f"{what}, its {cols.numel()} columns that are off, in float64",
+                planes=sb.i1_planes())
     else:
         for row in (mk.ST_N, mk.ST_CONV):
             if not torch.equal(got[-1][row], want[-1][row]):
@@ -597,12 +645,15 @@ def ptxas_entries(log_path: str) -> list:
 
 
 def mega_build(mangled: str) -> tuple:
-    """(dtype, mm, threads) of mega_kernel<T, MODE, NT, 0> by its name."""
+    """((dtype, mm, threads), AB bits) of mega_kernel<T, MODE, NT, AB> by its
+    name: AB 0 is the solve (sos_mega), AB_I1IN the solve with the first
+    order from the host (sos_mega_i1in)."""
     import re
 
-    t, mode, nt = re.search(r"mega_kernelI([fd])Li(\d)ELi(\d+)ELi0E", mangled).groups()
+    t, mode, nt, ab = re.search(r"mega_kernelI([fd])Li(\d)ELi(\d+)ELi(\d+)E",
+                                mangled).groups()
     return ({"f": "float32", "d": "float64"}[t],
-            {"0": "highest", "1": "bf16x3", "2": "bf16x5"}[mode], int(nt))
+            {"0": "highest", "1": "bf16x3", "2": "bf16x5"}[mode], int(nt)), int(ab)
 
 
 def tc_kernel_label(mangled: str) -> str:
@@ -673,10 +724,14 @@ def phase_card():
                 cuda_build._lib_path("fused_sweeps") + ".log") if down_kernel_label(name)]
     if len(down) != 2:
         fail(f"fused_sweeps.cu built {len(down)} down-sweep kernels, not 2")
-    mega = {mega_build(name): (regs, spill) for name, regs, spill, _ in ptxas_entries(
-        cuda_build._lib_path("megakernel") + ".log")}
-    if set(mega) != set(MEGA_PTXAS_SIMT) | set(MEGA_PTXAS_TC):
-        fail(f"megakernel.cu built {sorted(mega)}")
+    builds = {}
+    for name, regs, spill, _ in ptxas_entries(cuda_build._lib_path("megakernel") + ".log"):
+        key, ab = mega_build(name)
+        builds.setdefault(ab, {})[key] = (regs, spill)
+    mega, i1in = builds.get(0, {}), builds.get(MEGA_AB_I1IN, {})
+    if (set(builds) != {0, MEGA_AB_I1IN} or set(mega) != set(i1in)
+            or set(mega) != set(MEGA_PTXAS_SIMT) | set(MEGA_PTXAS_TC)):
+        fail(f"megakernel.cu built {[(ab, sorted(b)) for ab, b in builds.items()]}")
     changed = {k: mega[k] for k, ref in MEGA_PTXAS_SIMT.items() if mega[k] != ref}
     changed.update({k: mega[k] for k, (regs, spill) in MEGA_PTXAS_TC.items()
                     if mega[k][0] != regs or mega[k][1] > spill})
@@ -685,6 +740,8 @@ def phase_card():
              f"(SIMT {MEGA_PTXAS_SIMT}, tensor cores {MEGA_PTXAS_TC})")
     ptxas = {}
     for name in cuda_build.SOURCES:
+        if name in cuda_build.ABLATE_SOURCES:
+            continue
         log = cuda_build._lib_path(name) + ".log"
         with open(log) if os.path.exists(log) else open(os.devnull) as fh:
             ptxas[name] = [ln.strip() for ln in fh
@@ -692,7 +749,8 @@ def phase_card():
     # the ablated builds: one summary line for their 42 kernels, the 14 of
     # float32 'bf16x3' (on the tensor cores) apart
     span = lambda v: [min(v, default=None), max(v, default=None)]
-    abl = ptxas_entries(cuda_build._lib_path("mega_ablate") + ".log")
+    abl = [e for src in cuda_build.ABLATE_SOURCES
+           for e in ptxas_entries(cuda_build._lib_path(src) + ".log")]
     ptxas["mega_ablate"] = {
         key: {"kernels": len(e), "registers": span([r for _, r, _, _ in e]),
               "spill_store_bytes": span([sp for _, _, sp, _ in e])}
@@ -702,9 +760,13 @@ def phase_card():
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": round(build_s, 3),
-          "compiled": sorted(built), "tensor_core_kernels": tc_kernels,
+          "compiled": sorted(built),
+          "build_s_by_source": {k: round(v, 1) for k, v in built.items()},
+          "tensor_core_kernels": tc_kernels,
           "stage_kernels": stages, "down_sweep_kernels": down,
           "sos_mega_ptxas": {f"{d} {m} {nt}": v for (d, m, nt), v in sorted(mega.items())},
+          "sos_mega_i1in_ptxas": {f"{d} {m} {nt}": v
+                                  for (d, m, nt), v in sorted(i1in.items())},
           "ptxas": ptxas})
 
 
@@ -1084,14 +1146,16 @@ def phase_fwc_sweep(device):
     return {name: max(abs_k[name], abs_c[name]) for name in abs_k}
 
 
-def mega_bound_ms(n_orders, L: int, Mp: int, ops, itemsize: int):
+def mega_bound_ms(n_orders, L: int, Mp: int, ops, itemsize: int, host_i1=False):
     """Least time (ms) for mega_call on a batch whose columns took
     ``n_orders`` orders: its products' operations (per column the I1
     surface product once and the source product once per further order,
     each 2·rows·K·L per pass of the mm mode) over the peak rate for their
     type, against its compulsory bytes (the 22 pack rows it reads, the I1
     tiles, cpar, the operators, four summary rows and the stats) over the
-    memory rate."""
+    memory rate.  ``host_i1`` (sos_mega_i1in): no I1 product, and in place
+    of the I1 inputs (11 pack rows, the tiles, cpar's constant, the surface
+    operator) the two (L, C, Mp) planes of the host's I1."""
     C = int(n_orders.numel())
     passes = SPLIT_PASSES[ops.mm]
     op_type = "bf16" if ops.mm != "highest" else (
@@ -1099,21 +1163,26 @@ def mega_bound_ms(n_orders, L: int, Mp: int, ops, itemsize: int):
     nsplit = 2 if ops.mm != "highest" else 1
     orders = int((n_orders - 1).sum())
     flops = 2 * 4 * Mp * 2 * Mp * L * passes * orders
-    if ops.lamb:
+    if ops.lamb and not host_i1:
         flops += 2 * 4 * Mp * Mp * L * passes * C
-    nbytes = itemsize * (22 * L * C + 25 * C * Mp + 2 * C + 4 * C * Mp + 3 * C
-                         + nsplit * (8 * Mp * Mp + 4 * Mp * Mp + Mp * Mp))
+    if host_i1:
+        nbytes = itemsize * (11 * L * C + 2 * L * C * Mp + C + 4 * C * Mp + 3 * C
+                             + nsplit * (8 * Mp * Mp + Mp * Mp))
+    else:
+        nbytes = itemsize * (22 * L * C + 25 * C * Mp + 2 * C + 4 * C * Mp + 3 * C
+                             + nsplit * (8 * Mp * Mp + 4 * Mp * Mp + Mp * Mp))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS[op_type] * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def mega_library_ms(n_orders, L: int, Mp: int, ops):
+def mega_library_ms(n_orders, L: int, Mp: int, ops, host_i1=False):
     """mega_call's product-only yardstick (ms): one FP32 torch.matmul of the
     batch's source product, (C·L × 2Mp)·(2Mp × 4Mp), times the source
     products the batch needs per column (the mean of n − 1), plus one of
-    I1's surface product (C·L × Mp)·(Mp × 4Mp) for a Lambertian surface.
-    The epilogues, recurrences and pass B are not in it."""
+    I1's surface product (C·L × Mp)·(Mp × 4Mp) for a Lambertian surface
+    whose I1 the kernel evaluates (not ``host_i1``).  The epilogues,
+    recurrences and pass B are not in it."""
     import torch
 
     from sos_rt_tpu_torch.config import full_precision_matmul
@@ -1124,7 +1193,7 @@ def mega_library_ms(n_orders, L: int, Mp: int, ops):
     mat = lambda r, k: torch.rand((r, k), generator=g, device=dev)
     x, w = mat(C * L, 2 * Mp), mat(4 * Mp, 2 * Mp)
     total = timed(lambda: torch.matmul(x, w.T), 3) * float((n_orders - 1).mean())
-    if ops.lamb:
+    if ops.lamb and not host_i1:
         x1, w1 = mat(C * L, Mp), mat(4 * Mp, Mp)
         total += timed(lambda: torch.matmul(x1, w1.T), 3)
     return total
@@ -1659,9 +1728,15 @@ def phase_reference(device):
     emit(out)
 
 
+# the run command's cases: the hg preset, its default (eva: log-normal Mie,
+# Lambertian) and wildfire (log-normal Mie, specular surface)
+RUN_CLI_CASES = (("hg", ["--preset", "hg"]), ("eva", []),
+                 ("wildfire", ["--preset", "wildfire"]))
+
+
 def phase_run_cli(device):
-    """``python -m sos_rt_tpu_torch run --preset hg`` in a process of its
-    own, against the mega engine in float64 on the card."""
+    """``python -m sos_rt_tpu_torch run`` in a process of its own for each of
+    RUN_CLI_CASES, against the mega engine in float64 on the card."""
     import numpy as np
     import torch
 
@@ -1671,48 +1746,56 @@ def phase_run_cli(device):
 
     out_dir = os.path.join(HERE, "build", "sos_rt_tpu_torch", "run_cli")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "hg.npz")
-    argv = [sys.executable, "-m", "sos_rt_tpu_torch", "run", "--preset", "hg", "-o", path]
-    t0 = time.perf_counter()
-    res = subprocess.run(argv, cwd=HERE, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if res.returncode != 0:
-        fail(f"run_cli exited {res.returncode}: {res.stderr[-2000:]}")
-    with np.load(path) as z:
-        got = {k: z[k] for k in z.files}
-    for k in ("flux_up", "flux_down", "net_flux", "diffusivity", "heating_rate", "I"):
-        if not np.isfinite(got[k]).all():
-            fail(f"run_cli: {k} has non-finite values")
-    preset = get_preset("hg")
-    tables = PhaseTables.from_models(preset.grid, 0.5, atm=preset.atm, aer=preset.aer,
-                                     dtype=torch.float64, device=device)
-    mega = solve_batch(broadcast_scene(preset.scene, 1, device=device), tables,
-                       preset.grid, preset.opts, engine="mega", device=device)
-    want = mega.i_total[0].cpu().numpy()
-    if int(got["n_orders"]) != int(mega.n_orders[0]):
-        fail(f"run_cli: {int(got['n_orders'])} orders, the mega engine "
-             f"{int(mega.n_orders[0])}")
-    if not np.allclose(got["I"], want, rtol=1e-9, atol=1e-11 * np.abs(want).max()):
-        fail("run_cli: I differs from the mega engine's, max rel "
-             f"{np.abs(got['I'] - want).max() / np.abs(want).max():.3e}")
-    # the same column's solve warm, in this process (the command's own
-    # "solved in" line times the first solve of a fresh process)
-    warm = [timed_solve(lambda: solve_column(preset.scene, tables, preset.grid,
-                                             preset.opts, device=device))[0]
-            for _ in range(2)]
-    solved = [ln for ln in res.stderr.splitlines() if "solved in" in ln]
-    emit({"phase": "run_cli", "argv": argv[2:], "warm_solve_s": warm,
-          "grid": [preset.grid.nb_angles, preset.grid.nb_layers], "dtype": "float64",
-          "wall_s": wall, "solve_line": solved[0] if solved else None,
-          "n_orders": int(got["n_orders"]),
-          "rel_err_to_mega": float(np.abs(got["I"] - want).max() / np.abs(want).max()),
-          "toa_net_flux": float(-got["flux_down"][0] - got["flux_up"][0])})
+    runs = []
+    for name, flags in RUN_CLI_CASES:
+        path = os.path.join(out_dir, f"{name}.npz")
+        argv = [sys.executable, "-m", "sos_rt_tpu_torch", "run", *flags, "-o", path]
+        t0 = time.perf_counter()
+        res = subprocess.run(argv, cwd=HERE, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail(f"run_cli {name} exited {res.returncode}: {res.stderr[-2000:]}")
+        with np.load(path) as z:
+            got = {k: z[k] for k in z.files}
+        for k in ("flux_up", "flux_down", "net_flux", "diffusivity", "heating_rate", "I"):
+            if not np.isfinite(got[k]).all():
+                fail(f"run_cli {name}: {k} has non-finite values")
+        preset = get_preset(name)
+        tables = PhaseTables.from_models(preset.grid, 0.5, atm=preset.atm,
+                                         aer=preset.aer, dtype=torch.float64,
+                                         device=device)
+        mega = solve_batch(broadcast_scene(preset.scene, 1, device=device), tables,
+                           preset.grid, preset.opts, engine="mega", device=device)
+        want = mega.i_total[0].cpu().numpy()
+        if int(got["n_orders"]) != int(mega.n_orders[0]):
+            fail(f"run_cli {name}: {int(got['n_orders'])} orders, the mega engine "
+                 f"{int(mega.n_orders[0])}")
+        if not np.allclose(got["I"], want, rtol=1e-9, atol=1e-11 * np.abs(want).max()):
+            fail(f"run_cli {name}: I differs from the mega engine's, max rel "
+                 f"{np.abs(got['I'] - want).max() / np.abs(want).max():.3e}")
+        # the same column's solve warm, in this process (the command's own
+        # "solved in" line times the first solve of a fresh process)
+        warm = [timed_solve(lambda: solve_column(preset.scene, tables, preset.grid,
+                                                 preset.opts, device=device))[0]
+                for _ in range(2)]
+        solved = [ln for ln in res.stderr.splitlines() if "solved in" in ln]
+        runs.append({
+            "preset": name, "argv": argv[2:-2], "surface": preset.opts.surface,
+            "warm_solve_s": warm, "wall_s": wall,
+            "solve_line": solved[0] if solved else None,
+            "n_orders": int(got["n_orders"]),
+            "rel_err_to_mega": float(np.abs(got["I"] - want).max() / np.abs(want).max()),
+            "toa_net_flux": float(-got["flux_down"][0] - got["flux_up"][0])})
+    grid = get_preset("hg").grid
+    emit({"phase": "run_cli", "grid": [grid.nb_angles, grid.nb_layers],
+          "dtype": "float64", "runs": runs})
 
 
 def phase_critical_albedo(device):
     """The critical-albedo command (mega engine, float32, 16 lanes) at
-    501×800, then the batched bisection against the per-column one in
-    float64 on 4 lanes."""
+    501×800 on the hg preset and on its default preset (eva), then for each
+    the batched bisection against the per-column one in float64 on 4
+    lanes."""
     import contextlib
     import dataclasses
     import io
@@ -1727,39 +1810,261 @@ def phase_critical_albedo(device):
 
     out_dir = os.path.join(HERE, "build", "sos_rt_tpu_torch")
     os.makedirs(out_dir, exist_ok=True)
-    out_path = os.path.join(out_dir, "critical_albedo.json")
-    argv = ["critical-albedo", "--preset", "hg", "--tau-aer", "0.02,0.5", "--num", "16",
-            "-o", out_path]
-    with contextlib.redirect_stderr(io.StringIO()):
-        wall, _, launches = timed_solve(lambda: cli.main(argv))
-    preset = get_preset("hg")
-    check_path_launches(launches, preset.grid, torch.float32, "critical_albedo")
-    tc_route_ok(launches, True, "critical_albedo")
-    with open(out_path) as f:
-        curve = json.load(f)["critical_albedo"]
-    if len(curve) != 16 or not all(0.0 <= a <= 1.0 for a in curve.values()):
-        fail(f"critical_albedo: curve {curve}")
+    out = {"phase": "critical_albedo", "dtype": "float32", "engine": "mega",
+           "runs": []}
+    for name, flags in (("hg", ["--preset", "hg"]), ("eva", [])):
+        out_path = os.path.join(out_dir, f"critical_albedo_{name}.json")
+        argv = ["critical-albedo", *flags, "--tau-aer", "0.02,0.5", "--num", "16",
+                "-o", out_path]
+        with contextlib.redirect_stderr(io.StringIO()):
+            wall, _, launches = timed_solve(lambda: cli.main(argv))
+        preset = get_preset(name)
+        check_path_launches(launches, preset.grid, torch.float32,
+                            f"critical_albedo {name}")
+        tc_route_ok(launches, True, f"critical_albedo {name}")
+        with open(out_path) as f:
+            res = json.load(f)
+        curve = res["critical_albedo"]
+        if (res["preset"] != name or len(curve) != 16
+                or not all(0.0 <= a <= 1.0 for a in curve.values())):
+            fail(f"critical_albedo {name}: {res}")
 
-    taus = torch.tensor([0.02, 0.1, 0.25, 0.5], dtype=torch.float64, device=device)
-    scenes = dataclasses.replace(broadcast_scene(preset.scene, 4, device=device),
-                                 tau_star_aer=taus)
-    tables = PhaseTables.from_models(preset.grid, 0.5, atm=preset.atm, aer=preset.aer,
-                                     dtype=torch.float64, device=device)
-    t0 = time.perf_counter()
-    batch = critical_albedo_batch(scenes, tables, preset.grid, preset.opts,
-                                  engine="mega", device=device)
-    t1 = time.perf_counter()
-    column = critical_albedo(scenes, tables, preset.grid, preset.opts, device=device)
-    t2 = time.perf_counter()
-    if not torch.allclose(batch, column, rtol=1e-9, atol=1e-12):
-        fail(f"critical_albedo: batched {batch.tolist()} vs per-column {column.tolist()}")
-    emit({"phase": "critical_albedo", "argv": argv[:7],
-          "grid": [preset.grid.nb_angles, preset.grid.nb_layers],
-          "dtype": "float32", "engine": "mega", "wall_s": wall, "launches": launches,
-          "curve": curve, "f64_lanes": {"tau_star_aer": taus.tolist(),
-                                        "albedo": column.tolist(),
-                                        "batch_mega_wall_s": t1 - t0,
-                                        "column_wall_s": t2 - t1}})
+        taus = torch.tensor([0.02, 0.1, 0.25, 0.5], dtype=torch.float64, device=device)
+        scenes = dataclasses.replace(broadcast_scene(preset.scene, 4, device=device),
+                                     tau_star_aer=taus)
+        tables = PhaseTables.from_models(preset.grid, 0.5, atm=preset.atm,
+                                         aer=preset.aer, dtype=torch.float64,
+                                         device=device)
+        t0 = time.perf_counter()
+        batch = critical_albedo_batch(scenes, tables, preset.grid, preset.opts,
+                                      engine="mega", device=device)
+        t1 = time.perf_counter()
+        column = critical_albedo(scenes, tables, preset.grid, preset.opts, device=device)
+        t2 = time.perf_counter()
+        if not torch.allclose(batch, column, rtol=1e-9, atol=1e-12):
+            fail(f"critical_albedo {name}: batched {batch.tolist()} vs per-column "
+                 f"{column.tolist()}")
+        out["runs"].append({
+            "preset": name, "argv": argv[:-2],
+            "grid": [preset.grid.nb_angles, preset.grid.nb_layers], "wall_s": wall,
+            "launches": launches, "curve": curve,
+            "f64_lanes": {"tau_star_aer": taus.tolist(), "albedo": column.tolist(),
+                          "batch_mega_wall_s": t1 - t0, "column_wall_s": t2 - t1}})
+    emit(out)
+
+
+def phase_mie_tables():
+    """The eva and wildfire presets' log-normal Mie tables at 501 angles,
+    built anew (cache=False) on the host: which core built them (the native
+    one, built with g++ from sos_rt_tpu_torch/csrc/miecore.cpp, or the NumPy
+    series; the phase fails without the native core: g++ is where nvcc
+    is), the wall time of each, and their normalizations (∫P0 dµ = 2, each
+    column of P 4)."""
+    import numpy as np
+
+    from sos_rt_tpu_torch.models import _native, build_phase_tables
+    from sos_rt_tpu_torch.presets import get_preset
+
+    native = _native.get_lib() is not None
+    if not native:
+        fail("mie_tables: the native Mie core did not build or load")
+    out = {"phase": "mie_tables", "native_core": native,
+           "library": os.path.relpath(_native.lib_path(), HERE), "tables": {}}
+    for name in ("eva", "wildfire"):
+        preset = get_preset(name)
+        kind, params = preset.aer
+        mu, w = preset.grid.mu(), preset.grid.trapz_weights()
+        t0 = time.perf_counter()
+        p0, p = build_phase_tables(kind, mu, 0.5, cache=False, **params)
+        wall = time.perf_counter() - t0
+        m2 = 2 * preset.grid.nb_angles
+        if p0.shape != (m2,) or p.shape != (m2, m2) or not (
+                np.isfinite(p0).all() and np.isfinite(p).all()):
+            fail(f"mie_tables {name}: shapes {p0.shape}, {p.shape} or non-finite")
+        norms = [abs(float(np.sum(p0 * w)) - 2.0) / 2.0,
+                 float(np.abs(p.T @ w - 4.0).max()) / 4.0]
+        if not max(norms) <= 1e-10:
+            fail(f"mie_tables {name}: normalizations off by {norms}")
+        out["tables"][name] = {"kind": kind, "angles": preset.grid.nb_angles,
+                               "wall_s": wall, "norm_rel_err": norms}
+    emit(out)
+
+
+def phase_i1_host(device):
+    """The mega engine with the first order from the host (i1='host'): the
+    64×128 sweep batch resident (sos_mega_i1in) and the canonical batch
+    streamed (no passI).  Returns the kernels-line entry of sos_mega_i1in."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch import fused
+    from sos_rt_tpu_torch.config import SolverOptions
+    from sos_rt_tpu_torch.fused import prepare_batch, solve_batch_mega, take_columns
+    from sos_rt_tpu_torch.ops import megakernel as mk
+    from sos_rt_tpu_torch.parallel.mesh import mega_small_ok
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import PhaseTables
+
+    preset, scenes, tables = fwc_batch(device)
+    B, grid = scenes.mu0.shape[0], preset.grid
+    f32, f64 = tables[torch.float32], tables[torch.float64]
+    solve = lambda i1, sc, tb, opts: solve_batch_mega(
+        sc, tb, grid, opts, outputs="summary", sort="predict", stream=False, i1=i1,
+        device=device)
+    # the main path: every count 0 just before, read just after
+    wall_h, host, host_l = timed_solve(lambda: solve("host", scenes, f32, preset.opts))
+    wall_k, kern, kern_l = timed_solve(lambda: solve("kernel", scenes, f32, preset.opts))
+    if not (host_l["mega_call_i1in"] == 1 and host_l["passI"] == 0
+            and host_l["mega_call"] == kern_l["mega_call"]
+            and kern_l["mega_call_i1in"] == 0):
+        fail(f"i1_host: launches {host_l}, with the kernel's I1 {kern_l}")
+    mega_tc_ok(host_l, "i1_host")
+    summary = lambda s: (s.i_toa, s.i_surface)
+    host_vs_kernel, _ = loops_within_limits(host.n_orders, kern.n_orders, summary(host),
+                                            summary(kern), "i1_host: host vs kernel I1")
+    # 8 columns in float64: equal order counts
+    sub = torch.arange(8, device=device) * (B // 8)
+    o64 = dataclasses.replace(preset.opts, dtype="float64")
+    h64, k64 = (solve(i1, take_columns(scenes, sub), f64, o64) for i1 in ("host", "kernel"))
+    if not torch.equal(h64.n_orders, k64.n_orders):
+        fail(f"i1_host float64: order counts {h64.n_orders.tolist()} vs "
+             f"{k64.n_orders.tolist()}")
+    rows = lambda s: torch.cat([s.i_toa, s.i_surface], 1)
+    f64_rel = rel_err(rows(h64), rows(k64))
+    if not f64_rel <= 1e-12:
+        fail(f"i1_host float64: host vs kernel I1 rows {f64_rel:.3e}")
+
+    # sos_mega_i1in against mega_plain from the same planes, and timed beside
+    # sos_mega, on the batch in the order the solve gives it
+    key = fused.sort_key(scenes, f32, grid, preset.opts, "predict", device)
+    perm = torch.argsort(key, stable=True)
+    cb = mk.default_cols_per_tile(mk.pad_angles(grid.nb_angles))
+    sorted_scenes = take_columns(scenes, perm)
+    prep = lambda sc, tb, opts, i1: prepare_batch(sc, tb, grid, opts, cols_per_block=cb,
+                                                  device=device, i1=i1)
+    sb, sbk = prep(sorted_scenes, f32, preset.opts, "host"), prep(
+        sorted_scenes, f32, preset.opts, "kernel")
+    rel, absd, vs_plain = mega_vs_plain(
+        sb.pack, sb.cpar, sb.tiles, sb.ops, preset.opts, F32_KERNEL_TOL,
+        "sos_mega_i1in at the sweep batch", planes=sb.i1_planes(),
+        f64_batch=lambda cols: (prep(take_columns(sorted_scenes, cols), f64, o64,
+                                     "host"), o64))
+    kw = dict(tol=float(preset.opts.tol), max_orders=int(preset.opts.max_orders),
+              full=False)
+    planes = sb.i1_planes()
+    call = lambda: mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **kw, **planes)
+    call_kernel = lambda: mk.mega_call(sbk.pack, sbk.cpar, sbk.tiles, sbk.ops, **kw)
+    n_orders = call()[-1][mk.ST_N]
+    L, Mp = grid.nb_layers, sb.ops.mp
+    times = {"sos_mega_i1in": [], "sos_mega": []}
+    for _ in range(2):                         # in turns, in one call
+        times["sos_mega_i1in"].append(timed(call, 3))
+        times["sos_mega"].append(timed(call_kernel, 3))
+    bms, by = mega_bound_ms(n_orders, L, Mp, sb.ops, sb.pack.element_size(), host_i1=True)
+    entry = {"name": "mega_call_i1in", "route": "cuda", "source": MEGA_SOURCE,
+             "replaces": REPLACES["mega_call_i1in"],
+             "launches": host_l["mega_call_i1in"], "max_abs_err": absd,
+             "max_rel_err": rel, "ms": min(times["sos_mega_i1in"]),
+             "plain_ms": vs_plain.pop("plain_ms"),
+             "bound_ms": bms, "bound_by": by,
+             "library_ms": mega_library_ms(n_orders, L, Mp, sb.ops, host_i1=True)}
+
+    # the canonical batch, streamed: no passI, passA and passB as with the
+    # kernels' I1
+    canon = get_preset("hg")
+    copts = SolverOptions(surface="lambertian", dtype="float32", mm="bf16x3")
+    cscenes = random_scenes(canon, 256, device, np.random.default_rng(SEED))
+    ctables = PhaseTables.from_models(canon.grid, 0.5, atm=canon.atm, aer=canon.aer,
+                                      dtype=torch.float32, device=device)
+    # the grid has small-µ columns: the mega path takes the batch where each
+    # column's polyfit band covers them, as solve_batch(engine='mega') checks
+    covered = mega_small_ok(cscenes, canon.grid)
+    if not covered:
+        fail("i1_host canonical: the batch would go to the fused engine")
+    csolve = lambda i1: solve_batch_mega(cscenes, ctables, canon.grid, copts,
+                                         outputs="summary", cols_per_block=128, i1=i1,
+                                         allow_small=covered, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    cwall_h, chost, chost_l = timed_solve(lambda: csolve("host"))
+    cpeak = torch.cuda.max_memory_allocated() / 1e9
+    cwall_k, ckern, ckern_l = timed_solve(lambda: csolve("kernel"))
+    if not (chost_l["passI"] == 0 and ckern_l["passI"] > 0
+            and (chost_l["passA"], chost_l["passB"]) == (ckern_l["passA"], ckern_l["passB"])
+            and chost_l["passA"] == chost_l["passA_tc"] > 0):
+        fail(f"i1_host canonical: launches {chost_l}, with the kernels' I1 {ckern_l}")
+    if not (bool(torch.isfinite(chost.i_toa).all())
+            and bool(torch.isfinite(chost.i_surface).all())):
+        fail("i1_host canonical: summary rows are not finite")
+    dn = (chost.n_orders - ckern.n_orders).abs()
+    emit({"phase": "i1_host", "grid": [grid.nb_angles, grid.nb_layers], "batch": B,
+          "sort": "predict",
+          "wall_s": {"host": wall_h, "kernel": wall_k},
+          "launches": {"host": host_l, "kernel": kern_l},
+          "host_vs_kernel": host_vs_kernel, "limits": MEGA_BATCH_LIMITS,
+          "f64_8": {"n_orders": h64.n_orders.tolist(), "rows_rel": f64_rel},
+          "sos_mega_i1in": {**{k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms")},
+                            "vs_plain": vs_plain, "ms_in_turns": times},
+          "canonical": {"grid": [canon.grid.nb_angles, canon.grid.nb_layers],
+                        "batch": 256, "wall_s": {"host": cwall_h, "kernel": cwall_k},
+                        "peak_memory_gb_host": cpeak,
+                        "launches": {"host": chost_l, "kernel": ckern_l},
+                        "n_differs": int((dn > 0).sum()),
+                        "rows_rel": max(rel_err(a, b) for a, b in zip(
+                            summary(chost), summary(ckern)))}})
+    return entry
+
+
+# van de Hulst's angles at which the single-layer solve is read
+VDH_MU = (0.1, 0.3, 0.5, 0.7, 0.9, 1.0)
+
+
+def phase_single_layer(device):
+    """tests/test_vdh.py's semi-infinite case on the card: one isotropic
+    slab, 96 angles × 2400 layers, τ* = 25, ω = 0.8, µ0 = 0.5, float64:
+    the card against the CPU (equal order counts, rtol 1e-9) and against
+    the published H-function law (ω/4)H(µ)H(µ0)/(µ+µ0) at µ ≥ 0.3 (rtol
+    1e-3, as test_vdh.py); no kernel launched."""
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.config import GridSpec, SolverOptions
+    from sos_rt_tpu_torch.models import build_phase_tables
+    from sos_rt_tpu_torch.single_layer import solve_single_layer, vdh_extract
+    from sos_rt_tpu_torch.validation import semi_infinite_reflection
+
+    grid = GridSpec(nb_angles=96, nb_layers=2400)
+    opts = SolverOptions(max_orders=120, dtype="float64")
+    mu0, omega, tau_star = 0.5, 0.8, 25.0
+    tables = build_phase_tables("iso", grid.mu(), mu0)
+    run = lambda dev: solve_single_layer(mu0, tau_star, tables, grid, opts, alb=omega,
+                                         device=dev)
+    walls, sols = {}, {}
+    for name, dev in (("card", device), ("card_warm", device),
+                      ("cpu", torch.device("cpu"))):
+        walls[name], sols[name], launches = timed_solve(lambda: run(dev))
+        no_launches(launches, "single_layer")
+    card, cpu = sols["card"], sols["cpu"]
+    if not (int(card.n_orders) == int(cpu.n_orders) and bool(card.converged)):
+        fail(f"single_layer: orders {int(card.n_orders)} on the card, "
+             f"{int(cpu.n_orders)} on the CPU (converged {bool(card.converged)})")
+    a, b = card.i_total.cpu(), cpu.i_total
+    if not torch.allclose(a, b, rtol=1e-9, atol=1e-11 * float(b.abs().max())):
+        fail(f"single_layer: card vs CPU {rel_err(a, b):.3e}")
+    mu = np.asarray(VDH_MU)
+    up, _ = vdh_extract(card.i_total, grid, mu_values=mu)
+    want = semi_infinite_reflection(mu, mu0, omega)
+    sel = mu >= 0.3
+    theory = float(np.max(np.abs(up[sel] - want[sel]) / np.abs(want[sel])))
+    if not theory <= 1e-3:
+        fail(f"single_layer: {theory:.3e} off the H-function law (rtol 1e-3)")
+    emit({"phase": "single_layer", "grid": [96, 2400], "tau_star": tau_star,
+          "omega": omega, "mu0": mu0, "dtype": "float64",
+          "n_orders": int(card.n_orders), "wall_s": walls,
+          "card_vs_cpu_rel": rel_err(a, b), "vs_h_function_rel": theory,
+          "i_up_vdh": dict(zip(VDH_MU, up.tolist()))})
 
 
 def phase_sweep_orders(device):
@@ -2081,11 +2386,14 @@ def main(argv=None) -> int:
         k["max_abs_err"] = max(k["max_abs_err"], fwc_abs[k["name"]])
     mega = phase_resident(device)
     mega["launches"] = phase_sweep_cli(device)
+    mega_i1in = phase_i1_host(device)
     phase_reference_f64(device)
     phase_reference(device)
+    phase_mie_tables()
     phase_run_cli(device)
     phase_critical_albedo(device)
     phase_sweep_orders(device)
+    phase_single_layer(device)
     phase_fused_f64(device)
     sweeps = phase_fused_canonical(device, sweep_abs)
     fused_abs = phase_fused_sweep(device)
@@ -2093,7 +2401,7 @@ def main(argv=None) -> int:
         k["max_abs_err"] = max(k["max_abs_err"], fused_abs[k["name"]])
     micro_entries = [phase_micro_ops(device), phase_micro_pass(device)]
     phase_ablate(device)
-    emit({"kernels": kernels + [mega] + sweeps + micro_entries})
+    emit({"kernels": kernels + [mega, mega_i1in] + sweeps + micro_entries})
     print(nvidia_smi(), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",

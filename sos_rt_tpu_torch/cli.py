@@ -10,9 +10,9 @@ Counterpart of ``sos_rt_tpu/cli.py``, with the same commands and flags:
 
 and one flag more, ``--device``: the commands run on the GPU unless it
 names another device (``--device cpu`` runs the plain PyTorch versions of
-the kernels).  All outputs are relative paths.  The Mie presets (``eva``,
-the default of ``run`` and ``critical-albedo``, and ``wildfire``) need the
-Mie models, which are not ported yet.
+the kernels).  All outputs are relative paths.  ``run`` and
+``critical-albedo`` default to the ``eva`` preset, whose log-normal Mie
+tables are built on the host (``models/mie_tables.py``).
 """
 from __future__ import annotations
 

@@ -32,10 +32,9 @@ MU0_RESONANCE_TOL = 1e-4
 
 
 class NotPortedError(NotImplementedError):
-    """A route of the TPU package that this port does not run yet (the
-    host-side first order of the mega engine, meshes, the Mie models, the
-    layer-sharded and single-layer solves).  Raised instead of falling back;
-    see ROADMAP.md for the order in which they come."""
+    """A route of the TPU package that this port does not run yet (meshes
+    and the layer-sharded solve).  Raised instead of falling back; see
+    ROADMAP.md for the order in which they come."""
 
 
 def full_precision_matmul() -> None:

@@ -1,6 +1,6 @@
 // The body of the resident whole-loop kernel (sos_mega), shared by
-// megakernel.cu, which builds the solve (AB = 0), and mega_ablate.cu, which
-// builds the ablated variants of tools/ablate_kernel.py in a translation unit
+// megakernel.cu, which builds the solve (AB = 0), and mega_ablate.cuh, which
+// builds the ablated variants of tools/ablate_kernel.py in translation units
 // of their own, so the solve's registers, spills and build time do not move.
 // The design is described in megakernel.cu; AB is a set of the ablation bits
 // of sos_tiles.cuh (the flags of megakernel._mega_kernel's ``ablate``):
@@ -18,7 +18,12 @@
 //   AB_NOSMOOTH  no smoothing
 //   AB_NORATIO   the ratio keeps its seed
 // With AB = 0 every `if constexpr` below drops out and the kernel is the
-// solve.
+// solve.  One more bit, AB_I1IN, is no ablation: it builds the solve with
+// the first order given from the host (the TPU kernel's i1dn_ref /
+// i1up_ref inputs, megakernel.py:326-329, 404-411): the pre step copies the
+// tile's rows of the two (L, Cg, Mp) planes i1dn / i1up into fdn / fup in
+// place of evaluating I1, and reads no I1 tile, pack row or surface
+// operator.  Only megakernel.cu builds it (sos_mega_i1in).
 //
 // The two quad products (I1's surface product, the J_n source product) run
 // on the tensor cores (mega_mma.cuh) in float32 'bf16x3' / 'bf16x5' with
@@ -34,6 +39,7 @@ namespace {
 using namespace sos;
 
 constexpr int CB_MAX = 32;      // most columns a tile may hold
+constexpr int AB_I1IN = 2048;   // I1 from the host planes (see above)
 // Blocks of 256 threads per SM the compiler must leave registers for: with
 // two, one block's product overlaps the other's serial pass-B walk (128
 // registers a thread instead of ~200).
@@ -54,6 +60,9 @@ template <typename T> struct MegaArgs {
   // the bf16 operator copies (2, 4Mp, Kp) of the tensor-core product
   // (rmma::takes_tc builds; null and unread otherwise)
   const uint16_t *ws_tc, *astk_tc;
+  // the host's first order, (L, Cg, Mp) each (AB_I1IN builds; null and
+  // unread otherwise)
+  const T *i1dn, *i1up;
 };
 
 // max that keeps a NaN (as torch.amax / torch.maximum do)
@@ -151,6 +160,15 @@ mega_kernel(const MegaArgs<T> a) {
     // ---- pre: the closed-form first order I1 into fdn, fup ----
     if constexpr ((AB & AB_NOI1) != 0) {
       for (size_t i = tid; i < plane; i += NT) fdn[i] = fup[i] = T(1);
+    } else if constexpr ((AB & AB_I1IN) != 0) {
+      // the tile's rows (t, c0 + cl) of the host planes; workspace row
+      // r = t * cb + cl
+      for (size_t i = tid; i < plane; i += NT) {
+        const size_t r = i / Mp, n = i - r * Mp;
+        const size_t o = ((r / cb) * Cg + c0 + r % cb) * Mp + n;
+        fdn[i] = a.i1dn[o];
+        fup[i] = a.i1up[o];
+      }
     } else {
       LoadSurfaceExp<T> ld{a.pack, pm, a.colc + RC_IVUP * Mp};
       EpiFirstOrder<T> epi{a.pack, pm, a.tiles, a.colc, a.cpar, fdn, fup, Mp, mr,
@@ -334,9 +352,11 @@ int resident_blocks(int Mp, int slot) {
   return per_sm > 0 ? sms * per_sm : -(int)cudaErrorLaunchOutOfResources;
 }
 
-// Launch mega_kernel<T, MODE, NT, AB> on the arguments of sos_mega.  A
-// build with the tensor-core product needs the bf16 operator copies (astk_tc
-// only for a Lambertian surface): without them it refuses to launch.
+// Launch mega_kernel<T, MODE, NT, AB> on the arguments of sos_mega (and,
+// for AB_I1IN, the host's I1 planes).  A build with the tensor-core product
+// needs the bf16 operator copies (astk_tc only for a Lambertian surface
+// whose I1 the kernel evaluates): without them it refuses to launch, as an
+// AB_I1IN build does without its planes.
 template <typename T, int MODE, int NT, int AB>
 int launch_mega(const void* pack, const void* cpar, const void* tiles,
                 const void* colc, const void* ws_hi, const void* ws_lo,
@@ -346,7 +366,8 @@ int launch_mega(const void* pack, const void* cpar, const void* tiles,
                 const void* bct_hi, const void* bct_lo, void* work, void* counter,
                 void* o0, void* o1, void* o2, void* o3, void* stats, int lamb,
                 int full, int L, int Cg, int cb, int Mp, int mr, int slot,
-                int nblocks, int max_orders, double tol, cudaStream_t st) {
+                int nblocks, int max_orders, double tol, cudaStream_t st,
+                const void* i1dn = nullptr, const void* i1up = nullptr) {
   const MegaArgs<T> a{(const T*)pack, (const T*)cpar, (const T*)tiles,
                       (const T*)colc, (const T*)ws_hi, (const T*)ws_lo,
                       (const T*)astk_hi, (const T*)astk_lo,
@@ -355,9 +376,13 @@ int launch_mega(const void* pack, const void* cpar, const void* tiles,
                       (T*)work, (int*)counter, (T*)o0, (T*)o1, (T*)o2, (T*)o3,
                       (T*)stats, L, Cg, cb, Mp, mr, slot, lamb, full,
                       max_orders, tol, (const uint16_t*)ws_tc,
-                      (const uint16_t*)astk_tc};
+                      (const uint16_t*)astk_tc, (const T*)i1dn, (const T*)i1up};
+  constexpr bool I1IN = (AB & AB_I1IN) != 0;
+  if constexpr (I1IN) {
+    if (i1dn == nullptr || i1up == nullptr) return (int)cudaErrorInvalidValue;
+  }
   if constexpr (rmma::takes_tc<T, MODE, NT>()) {
-    if (ws_tc == nullptr || (lamb && astk_tc == nullptr))
+    if (ws_tc == nullptr || (lamb && !I1IN && astk_tc == nullptr))
       return (int)cudaErrorInvalidValue;
   }
   const size_t smem = smem_for<T, MODE, NT>(Mp, slot);

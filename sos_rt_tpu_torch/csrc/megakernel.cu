@@ -43,24 +43,42 @@
 // astk_tc, so they sum in another order than the streamed passes' wgmma
 // mainloop; float64, 'highest' and Mp > 256 (512 threads) keep the SIMT
 // product of sos_tiles.cuh (quad_gemm_tile, 16 x 16 workers).
-// The kernel's body is in mega_body.cuh, which mega_ablate.cu builds too
-// with stages cut out (tools/ablate_kernel.py); this file builds the solve.
-// The entry point returns cudaGetLastError(); the caller raises on non-0.
+// The kernel's body is in mega_body.cuh, which mega_ablate.cuh builds too
+// with stages cut out (tools/ablate_kernel.py); this file builds the solve
+// (AB = 0) and, as sos_mega_i1in, the solve whose first order comes from
+// the host (AB = AB_I1IN: the TPU kernel's i1dn / i1up inputs,
+// sos_rt_tpu/ops/megakernel.py:326-329, 404-411).  Its pre step is a copy
+// of the tile's rows of two (L, Cg, Mp) planes into the workspace, bound by
+// those bytes; the rest of its launch is the solve's.
+// The entry points return cudaGetLastError(); the caller raises on non-0.
 #include "mega_body.cuh"
+
+namespace {
+
+template <int AB> int blocks_for(int dtype, int mode, int Mp, int slot) {
+  if (Mp < 8 || Mp > 512 || slot > Mp) return -(int)cudaErrorInvalidValue;
+  const int rc = dispatch(dtype, mode, [&](auto tv, auto mv) {
+    using T = decltype(tv);
+    constexpr int MODE = decltype(mv)::value;
+    return Mp <= 256 ? resident_blocks<T, MODE, 256, AB>(Mp, slot)
+                     : resident_blocks<T, MODE, 512, AB>(Mp, slot);
+  });
+  return rc > 0 ? rc : (rc < 0 ? rc : -(int)cudaErrorInvalidValue);
+}
+
+}  // namespace
 
 extern "C" {
 
 // The number of blocks the card keeps resident at once for these shapes
 // (the wrapper sizes the workspace by it), or -(CUDA error).
 int sos_mega_blocks(int dtype, int mode, int Mp, int slot) {
-  if (Mp < 8 || Mp > 512 || slot > Mp) return -(int)cudaErrorInvalidValue;
-  const int rc = dispatch(dtype, mode, [&](auto tv, auto mv) {
-    using T = decltype(tv);
-    constexpr int MODE = decltype(mv)::value;
-    return Mp <= 256 ? resident_blocks<T, MODE, 256, 0>(Mp, slot)
-                     : resident_blocks<T, MODE, 512, 0>(Mp, slot);
-  });
-  return rc > 0 ? rc : (rc < 0 ? rc : -(int)cudaErrorInvalidValue);
+  return blocks_for<0>(dtype, mode, Mp, slot);
+}
+
+// As sos_mega_blocks, for sos_mega_i1in.
+int sos_mega_i1in_blocks(int dtype, int mode, int Mp, int slot) {
+  return blocks_for<AB_I1IN>(dtype, mode, Mp, slot);
 }
 
 // dtype: 0 float32, 1 float64; mode: 0 highest, 1 bf16x3, 2 bf16x5.
@@ -89,7 +107,35 @@ int sos_mega(int dtype, int mode, int lamb, int full, const void* pack,
     return launch(pack, cpar, tiles, colc, ws_hi, ws_lo, astk_hi, astk_lo, ws_tc,
                   astk_tc, tap_col, tap_hi, tap_lo, pvt, bct_hi, bct_lo, work, counter,
                   o0, o1, o2, o3, stats, lamb, full, L, Cg, cb, Mp, mr, slot, nblocks,
-                  max_orders, tol, st);
+                  max_orders, tol, st, nullptr, nullptr);
+  });
+}
+
+// As sos_mega, with the first order given from the host: i1dn, i1up the
+// (L, Cg, Mp) planes of I1's halves (angle pads 0).  tiles, the pack's I1
+// rows, cpar's I1 constant, astk_* and astk_tc are not read.
+int sos_mega_i1in(const void* i1dn, const void* i1up, int dtype, int mode, int lamb,
+                  int full, const void* pack, const void* cpar, const void* tiles,
+                  const void* colc, const void* ws_hi, const void* ws_lo,
+                  const void* astk_hi, const void* astk_lo, const void* ws_tc,
+                  const void* astk_tc, const void* tap_col, const void* tap_hi,
+                  const void* tap_lo, const void* pvt, const void* bct_hi,
+                  const void* bct_lo, void* work, void* counter, void* o0, void* o1,
+                  void* o2, void* o3, void* stats, int L, int Cg, int cb, int Mp,
+                  int mr, int slot, int nblocks, int max_orders, double tol,
+                  void* stream) {
+  if (!shape_ok(Mp, mr, slot, cb, Cg) || nblocks < 1 || L < 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return dispatch(dtype, mode, [&](auto tv, auto mv) {
+    using T = decltype(tv);
+    constexpr int MODE = decltype(mv)::value;
+    auto launch = Mp <= 256 ? launch_mega<T, MODE, 256, AB_I1IN>
+                            : launch_mega<T, MODE, 512, AB_I1IN>;
+    return launch(pack, cpar, tiles, colc, ws_hi, ws_lo, astk_hi, astk_lo, ws_tc,
+                  astk_tc, tap_col, tap_hi, tap_lo, pvt, bct_hi, bct_lo, work, counter,
+                  o0, o1, o2, o3, stats, lamb, full, L, Cg, cb, Mp, mr, slot, nblocks,
+                  max_orders, tol, st, i1dn, i1up);
   });
 }
 

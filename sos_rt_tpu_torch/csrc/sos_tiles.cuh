@@ -1,5 +1,5 @@
 // Device functions shared by the streamed kernels (megastream.cu) and the
-// resident whole-loop kernel (megakernel.cu, mega_ablate.cu through
+// resident whole-loop kernel (megakernel.cu, mega_ablate*.cu through
 // mega_body.cuh): the tiled quad product, the downward recurrence and the
 // pass-B walk; micro.cu takes the smoothing walk and the bf16 split from
 // here too.  The solve's sources call the same functions on the same

@@ -1,8 +1,9 @@
 """Batched whole-solve entry points: the mega engine and the fused engine.
 
 Counterpart of ``sos_rt_tpu/fused.py``: :class:`SweepSummary`,
-:func:`solve_batch_mega` (``i1='kernel'``; the streamed execution and the
-resident one), :func:`predict_order_count` and :func:`solve_batch_fused`.
+:func:`solve_batch_mega` (the streamed execution and the resident one,
+each with I₁ evaluated in its kernels or given from the host),
+:func:`predict_order_count` and :func:`solve_batch_fused`.
 
 The mega engine's host preparation (τ profiles, mixing weights, pack rows,
 the in-kernel I₁ inputs, the static and stacked operators) follows the TPU
@@ -18,8 +19,7 @@ handful of columns) in plain torch between them; the Jₙ products are plain
 matrix products outside any kernel.  It takes every grid, and it is where
 :func:`solve_batch_mega` sends a whole batch whose grid fails
 ``mega_supported`` (small-µ columns that a column's polyfit band does not
-cover), as the TPU package does.  ``i1='host'`` of the mega engine is not
-ported yet and raises :class:`~sos_rt_tpu_torch.config.NotPortedError`.
+cover), as the TPU package does.
 """
 from __future__ import annotations
 
@@ -29,9 +29,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from sos_rt_tpu_torch.config import (SCENE_FIELDS, GridSpec, NotPortedError,
-                                     Scene, SolverOptions, full_precision_matmul,
-                                     resolve_device, torch_dtype)
+from sos_rt_tpu_torch.config import (SCENE_FIELDS, GridSpec, Scene, SolverOptions,
+                                     full_precision_matmul, resolve_device,
+                                     torch_dtype)
 from sos_rt_tpu_torch.grids import tau_profile
 from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.ops import megastream as ms
@@ -172,7 +172,10 @@ class MegaBatch:
     """A prepared batch for the order loop, streamed or resident (the
     port's layout): pack (PK_W, L, Bp), cpar (CP_W, Bp), tiles (NI, Bp,
     Mp), the per-solve operators, and the τ profile; Bp pads the batch to
-    a multiple of the block size by repeating the last column."""
+    a multiple of the block size by repeating the last column.  With the
+    first order from the host (``i1='host'``), ``i1`` is its (Bp, L, 2M)
+    field and ``i1dn`` / ``i1up`` its halves as (L, Bp, Mp) planes, the
+    tiles are empty (NI = 0) and the pack's and cpar's I₁ rows are 0."""
 
     pack: Any
     cpar: Any
@@ -183,20 +186,41 @@ class MegaBatch:
     tau: Any
     idx_up: Any
     idx_down: Any
+    i1: Any = None
+    i1dn: Any = None
+    i1up: Any = None
 
     def block(self, i: int):
         """(pack, cpar, tiles) of block ``i``, contiguous."""
         return ms.block_of(self.pack, self.cpar, self.tiles, i, self.cols_per_block)
 
+    def i1_planes(self):
+        """{'i1dn', 'i1up'}: the host I₁ planes, as the order loops take
+        them; {} without them."""
+        return {} if self.i1dn is None else dict(i1dn=self.i1dn, i1up=self.i1up)
+
+
+def host_i1_planes(i1, nb_angles: int, mp: int):
+    """The halves of I₁ (B, L, 2M) as the order loop's (L, B, Mp) planes,
+    angle-padded with zeros."""
+    pad = lambda h: torch.nn.functional.pad(h, (0, mp - nb_angles))
+    return tuple(pad(h).transpose(0, 1).contiguous()
+                 for h in (i1[..., :nb_angles], i1[..., nb_angles:]))
+
 
 def prepare_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                   opts: SolverOptions, mm: str | None = None,
-                  cols_per_block: int | None = None, device=None) -> MegaBatch:
+                  cols_per_block: int | None = None, device=None,
+                  i1: str = "kernel") -> MegaBatch:
     """Host preparation of the mega solve (fused.py:230-450 of the TPU
     package): dtype and mm resolution, batch padding, τ profiles, mixing
-    weights, pack rows, the in-kernel I₁ inputs and the operators.
-    ``cols_per_block`` defaults to the streamed loop's block size.
-    ``scenes``/``tables`` must already be on ``device``."""
+    weights, pack rows, the in-kernel I₁ inputs (``i1='kernel'``) or the
+    host's I₁ field (``i1='host'``, :func:`~sos_rt_tpu_torch.ops.
+    first_order.first_order`) and the operators.  ``cols_per_block``
+    defaults to the streamed loop's block size.  ``scenes``/``tables``
+    must already be on ``device``."""
+    if i1 not in ("kernel", "host"):
+        raise ValueError(f"unknown i1 mode {i1!r}; 'kernel' or 'host'")
     full_precision_matmul()
     stencils = stencils_for(grid)
     dtype = torch_dtype(opts.dtype)
@@ -232,11 +256,26 @@ def prepare_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     w_atm = (dtau_atm / (dtau_atm + dtau_aer)).to(dtype)
     w_aer = (dtau_aer / (dtau_atm + dtau_aer)).to(dtype)
 
-    i1_pack, i1_tiles, colc_pk, i1_const, astack = first_order_mega_inputs(
-        opts.surface, tau, mu, M, scenes.mu0, scenes.grd_alb,
-        scenes.alb_atm, scenes.alb_aer, tables.p0_atm, tables.p_atm,
-        tables.p0_aer, tables.p_aer, idx_up, idx_down, w_atm, w_aer,
-        w_mu, dtype)
+    host_i1 = i1dn = i1up = None
+    if i1 == "kernel":
+        i1_pack, i1_tiles, colc_pk, i1_const, astack = first_order_mega_inputs(
+            opts.surface, tau, mu, M, scenes.mu0, scenes.grd_alb,
+            scenes.alb_atm, scenes.alb_aer, tables.p0_atm, tables.p_atm,
+            tables.p0_aer, tables.p_aer, idx_up, idx_down, w_atm, w_aer,
+            w_mu, dtype)
+    else:
+        host_i1 = first_order(
+            opts.surface, tau, mu, M, cast(scenes.mu0), cast(scenes.grd_alb),
+            cast(scenes.alb_atm), cast(scenes.alb_aer), tables.p0_atm, tables.p_atm,
+            tables.p0_aer, tables.p_aer, idx_up, idx_down, w_atm, w_aer,
+            w_mu).to(dtype)
+        i1dn, i1up = host_i1_planes(host_i1, M, MP)
+        zl = torch.zeros((L, Bp), dtype=dtype, device=device)
+        i1_pack = {k: zl for k in mk.I1_PACK_KEYS}
+        i1_tiles = torch.zeros((0, MP, Bp), dtype=dtype, device=device)
+        colc_pk = torch.zeros((2, MP), dtype=dtype, device=device)
+        i1_const = torch.zeros((Bp,), dtype=dtype, device=device)
+        astack = None
 
     # ---- pack rows (PK_W, L, Bp) ----
     t_idx = torch.arange(L, device=device)[:, None]
@@ -279,7 +318,7 @@ def prepare_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     a_atm = source_operator(tables.p_atm.to(dtype), w_mu)
     a_aer = source_operator(tables.p_aer.to(dtype), w_mu)
     ws = mk.stack_source_operator(a_atm, a_aer, M, mm, dtype)
-    if MP != M:            # angle-pad the in-kernel I₁ inputs
+    if MP != M and i1 == "kernel":      # angle-pad the in-kernel I₁ inputs
         i1_tiles = torch.nn.functional.pad(i1_tiles, (0, 0, 0, MP - M))
         colc_pk = torch.nn.functional.pad(colc_pk, (0, MP - M))
         if astack is not None:
@@ -292,7 +331,7 @@ def prepare_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     return MegaBatch(pack=pack, cpar=cpar,
                      tiles=i1_tiles.transpose(1, 2).contiguous(), ops=sops,
                      cols_per_block=C, batch=B, tau=tau, idx_up=idx_up,
-                     idx_down=idx_down)
+                     idx_down=idx_down, i1=host_i1, i1dn=i1dn, i1up=i1up)
 
 
 def sort_key(scenes: Scene, tables: PhaseTables, grid: GridSpec,
@@ -340,6 +379,15 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     :func:`predict_order_count`, the score when that does not apply);
     results come back in the caller's order.
 
+    ``i1``: where the first order comes from.  'kernel' (default): the
+    kernels evaluate it from compact per-column inputs
+    (``first_order_mega_inputs``); with ``outputs='full'`` the Solution's
+    ``i1`` is None.  'host': :func:`~sos_rt_tpu_torch.ops.first_order.
+    first_order` builds the (B, L, 2M) field, which starts both executions
+    in place of passI or of sos_mega's own first order (``sos_mega_i1in``),
+    and ``outputs='full'`` returns it as ``Solution.i1``.  The fused engine,
+    where a batch goes there, returns its own ``i1`` either way.
+
     ``mm``: 'bf16x3' (the float32 default), 'bf16x5' or 'highest'
     (float64 always runs 'highest').  ``allow_small`` asserts that every
     column's µ→0⁻ band covers the grid's small-µ columns
@@ -354,9 +402,8 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     """
     if outputs not in ("full", "summary"):
         raise ValueError(f"unknown outputs mode {outputs!r}")
-    if i1 != "kernel":
-        raise NotPortedError(f"i1={i1!r}: only the in-kernel first order "
-                             "(i1='kernel') is ported; see ROADMAP.md")
+    if i1 not in ("kernel", "host"):
+        raise ValueError(f"unknown i1 mode {i1!r}; 'kernel' or 'host'")
     device = resolve_device(device)
     stencils = stencils_for(grid)
     mk.ablate_flags(ablate)
@@ -376,7 +423,7 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
         inv = torch.argsort(perm, stable=True)
         sol = solve_batch_mega(take_columns(scenes, perm), tables.take(perm),
                                grid, opts, cols_per_block=cols_per_block,
-                               sort=False, mm=mm, outputs=outputs,
+                               sort=False, mm=mm, outputs=outputs, i1=i1,
                                allow_small=allow_small, stream=stream,
                                device=device, ablate=ablate)
         return take_columns(sol, inv)
@@ -385,16 +432,20 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     if not stream and cols_per_block is None:
         cols_per_block = mk.default_cols_per_tile(mk.pad_angles(grid.nb_angles))
     sb = prepare_batch(scenes, tables, grid, opts, mm=mm,
-                       cols_per_block=cols_per_block, device=device)
+                       cols_per_block=cols_per_block, device=device, i1=i1)
+    i1_out = sb.i1[:sb.batch] if outputs == "full" and sb.i1 is not None else None
+    planes = sb.i1_planes()
+    # only the planes are read below: let a summary solve free the field
+    sb = dataclasses.replace(sb, i1=None, i1dn=None, i1up=None)
     loop = dict(tol=float(opts.tol), max_orders=int(opts.max_orders))
     if stream:
         res = ms.stream_order_loop(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
                                    cols_per_block=sb.cols_per_block,
-                                   outputs=outputs)
+                                   outputs=outputs, **planes)
     else:
         res = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
                            full=outputs == "full",
-                           cols_per_tile=sb.cols_per_block, ablate=ablate)
+                           cols_per_tile=sb.cols_per_block, ablate=ablate, **planes)
         if outputs == "full":       # (L, Bp, Mp) → (Bp, L, Mp)
             res = (res[0].transpose(0, 1), res[1].transpose(0, 1), res[2])
 
@@ -408,7 +459,7 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
         srf = torch.cat([res[2][:, :M], res[3][:, :M]], dim=1)[:B]
         return SweepSummary(i_toa=toa, i_surface=srf, **common)
     i_total = torch.cat([res[0][..., :M], res[1][..., :M]], dim=2)[:B]
-    return Solution(i_total=i_total, i1=None, **common)
+    return Solution(i_total=i_total, i1=i1_out, **common)
 
 
 class FusedBatch:

@@ -2,9 +2,8 @@
 
 Counterpart of ``sos_rt_tpu/models/__init__.py``: unknown names raise,
 and tables are cached under a content hash of (model, grid, µ0, every
-parameter).  The Mie families (``mie``, ``lognormal`` and the ``eva`` /
-``wildfire`` aliases) are not ported yet and raise
-:class:`MieNotPortedError`.
+parameter).  ``eva`` and ``wildfire`` are aliases of the log-normal Mie
+model with their presets' parameters.
 """
 from __future__ import annotations
 
@@ -15,23 +14,11 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 
-from sos_rt_tpu_torch.config import NotPortedError
 from sos_rt_tpu_torch.models.analytic import henyey_greenstein, isotropic, rayleigh
 from sos_rt_tpu_torch.models.fwc import fwc
+from sos_rt_tpu_torch.models.mie_tables import log_normal_mie, mie
 
 Tables = Tuple[np.ndarray, np.ndarray]
-
-
-class MieNotPortedError(NotPortedError):
-    """The Mie phase models (and their native core) are a later slice of
-    the port; see ROADMAP.md."""
-
-
-def _mie_not_ported(*args, **kwargs):
-    raise MieNotPortedError(
-        "the Mie phase models ('mie', 'lognormal', 'eva', 'wildfire') are "
-        "not ported to sos_rt_tpu_torch yet; see ROADMAP.md")
-
 
 # name → (builder, tuple of required param names)
 _REGISTRY: Dict[str, Tuple[Callable[..., Tables], Tuple[str, ...]]] = {
@@ -39,8 +26,16 @@ _REGISTRY: Dict[str, Tuple[Callable[..., Tables], Tuple[str, ...]]] = {
     "rayleigh": (lambda mu, mu0, **kw: rayleigh(mu, mu0), ()),
     "hg": (lambda mu, mu0, *, g, **kw: henyey_greenstein(mu, mu0, g), ("g",)),
     "fwc": (lambda mu, mu0, **kw: fwc(mu, mu0), ()),
-    "mie": (_mie_not_ported, ("indx", "r", "lambda0")),
-    "lognormal": (_mie_not_ported, ("lambda0", "indx", "n0", "r_m", "sig")),
+    "mie": (
+        lambda mu, mu0, *, indx, r, lambda0, **kw: mie(mu, mu0, indx, r, lambda0),
+        ("indx", "r", "lambda0"),
+    ),
+    "lognormal": (
+        lambda mu, mu0, *, lambda0, indx, n0, r_m, sig, **kw: log_normal_mie(
+            mu, mu0, lambda0, indx, n0, r_m, sig
+        ),
+        ("lambda0", "indx", "n0", "r_m", "sig"),
+    ),
 }
 _ALIASES = {"eva": "lognormal", "wildfire": "lognormal", "henyey_greenstein": "hg",
             "isotropic": "iso"}

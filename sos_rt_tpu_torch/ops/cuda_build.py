@@ -20,7 +20,10 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sos_rt_tpu_torch")
-SOURCES = ("megastream", "megakernel", "fused_sweeps", "micro", "mega_ablate")
+# the resident kernel's ablated builds are three sources (one a type and
+# mode), so that their 42 kernels compile in parallel
+ABLATE_SOURCES = ("mega_ablate", "mega_ablate_f32", "mega_ablate_f64")
+SOURCES = ("megastream", "megakernel", "fused_sweeps", "micro") + ABLATE_SOURCES
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
@@ -38,6 +41,8 @@ SIGNATURES = {
     "megakernel": {
         "sos_mega_blocks": [_I] * 4,
         "sos_mega": [_I] * 4 + [_P] * 23 + [_I] * 8 + [_D, _P],
+        "sos_mega_i1in_blocks": [_I] * 4,
+        "sos_mega_i1in": [_P] * 2 + [_I] * 4 + [_P] * 23 + [_I] * 8 + [_D, _P],
     },
     "fused_sweeps": {
         "sos_down_sweep": [_I] + [_P] * 4 + [_I] * 3 + [_Q, _Q, _P],
@@ -49,11 +54,11 @@ SIGNATURES = {
         "sos_micro_ops": [_I, _I] + [_P] * 8,
         "sos_micro_pass": [_I, _I] + [_P] * 3,
     },
-    "mega_ablate": {
-        "sos_mega_ablate_blocks": [_I] * 5,
-        "sos_mega_ablate": [_I] * 5 + [_P] * 23 + [_I] * 8 + [_D, _P],
-    },
 }
+SIGNATURES.update({name: {
+    "sos_mega_ablate_blocks": [_I] * 5,
+    "sos_mega_ablate": [_I] * 5 + [_P] * 23 + [_I] * 8 + [_D, _P],
+} for name in ABLATE_SOURCES})
 
 
 class KernelBuildError(RuntimeError):

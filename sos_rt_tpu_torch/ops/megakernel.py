@@ -431,12 +431,19 @@ def default_cols_per_tile(mp: int) -> int:
 # flag set.
 ABLATE_FLAGS = ("noconv", "noi1", "nosrc", "noloops", "nopassA", "nopoly",
                 "nopassB", "nobc", "nofin", "nosmooth", "noratio")
-# the variants of tools/ablate_kernel.py, the ones csrc/mega_ablate.cu builds
+# the variants of tools/ablate_kernel.py, the ones csrc/mega_ablate.cuh builds
 ABLATE_VARIANTS = (
     "noconv", "noconv,noi1", "noconv,nosrc", "noconv,noloops", "noconv,nopoly",
     "noconv,nosmooth", "noconv,nofin", "noconv,nobc", "noconv,noratio",
     "noconv,nopassA", "noconv,nopassB", "noconv,nosrc,noloops,nopoly,nofin",
     "noconv,nopassA,nopassB,noratio")
+
+
+# the library of the ablated builds of each (dtype, mm): csrc/mega_ablate.cu,
+# mega_ablate_f32.cu, mega_ablate_f64.cu
+ABLATE_LIBRARIES = {(torch.float32, "bf16x3"): "mega_ablate",
+                    (torch.float32, "highest"): "mega_ablate_f32",
+                    (torch.float64, "highest"): "mega_ablate_f64"}
 
 
 def ablate_flags(ablate: str) -> frozenset:
@@ -463,17 +470,19 @@ def takes_tensor_cores(ops) -> bool:
             and ops.mp <= MAX_TC_MP)
 
 
-def tc_operands(ops):
+def tc_operands(ops, surface_product: bool = True):
     """(ws_tc, astk_tc): the bf16 operator copies (2, 4Mp, Kp) that
     sos_mega's tensor-core product reads, exactly where it takes the tensor
     cores (:func:`takes_tensor_cores`; astk_tc only for a Lambertian
-    surface), else None: the kernel reads no copy there.  Raises where a
+    surface whose I₁ the kernel evaluates, ``surface_product``), else None:
+    the kernel reads no copy there.  Raises where a
     copy the product needs is missing (StreamOps builds them on the card
     only): the kernel would refuse to launch, and nothing falls back to the
     SIMT product."""
     if not takes_tensor_cores(ops):
         return None, None
-    need = [("ws_tc", 2 * ops.mp)] + ([("astk_tc", ops.mp)] if ops.lamb else [])
+    surface_product = surface_product and ops.lamb
+    need = [("ws_tc", 2 * ops.mp)] + ([("astk_tc", ops.mp)] if surface_product else [])
     for name, k in need:
         w = getattr(ops, name)
         kp = -(-k // TC_K_TILE) * TC_K_TILE
@@ -481,16 +490,18 @@ def tc_operands(ops):
             raise ValueError(f"the tensor-core product needs ops.{name} as a (2, "
                              f"{4 * ops.mp}, {kp}) bfloat16 copy; got "
                              f"{None if w is None else (tuple(w.shape), w.dtype)}")
-    return ops.ws_tc, (ops.astk_tc if ops.lamb else None)
+    return ops.ws_tc, (ops.astk_tc if surface_product else None)
 
 
 def mega_plain(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
-               full: bool, ablate: str = ""):
+               full: bool, ablate: str = "", i1dn=None, i1up=None):
     """Plain PyTorch version of the whole-loop kernel for one block of C
     columns that share the loop: pack (PK_W, L, C), cpar (CP_W, C), tiles
     (NI, C, Mp), ``ops`` a megastream.StreamOps.
 
-    The first order I₁ starts the fields and the totals; the ratio is
+    The first order I₁ starts the fields and the totals: evaluated here
+    (``passI_plain``), or the host's planes ``i1dn`` / ``i1up`` (L, C, Mp)
+    where they are given (the tiles are then not read); the ratio is
     seeded at 2·tol and n at 1; while any column's ratio is ≥ tol and no
     column has reached ``max_orders``, one order runs pass A, the surface
     BC and pass B, adds the new fields to the totals of the columns still
@@ -512,6 +523,8 @@ def mega_plain(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
     Mp, dtype, dev = ops.mp, pack.dtype, pack.device
     if "noi1" in ab:
         fdn = fup = torch.ones((L, C, Mp), dtype=dtype, device=dev)
+    elif i1dn is not None:
+        fdn, fup = i1dn, i1up                                   # pre: host I₁
     else:
         fdn, fup = ms.passI_plain(pack, tiles, cpar, ops)       # pre: I₁
     sdn = jnup = torch.zeros_like(fdn)
@@ -549,7 +562,7 @@ def mega_plain(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
 
 def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
               full: bool, cols_per_tile: int | None = None, ablate: str = "",
-              ablate_build: bool | None = None):
+              ablate_build: bool | None = None, i1dn=None, i1up=None):
     """The whole order loop of a batch in one kernel launch.  Replaces
     sos_rt_tpu/ops/megakernel.py::_mega_kernel (mega_call).
 
@@ -566,8 +579,15 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
     launches also count in ``mega_call.tc_launches``.
     Returns what :func:`mega_plain` returns, for all C columns.
 
+    ``i1dn`` / ``i1up`` (L, C, Mp), the host's first order (the TPU
+    kernel's ``i1dn_ref`` / ``i1up_ref``), start the loop in place of the
+    kernel's own I₁: on a card ``sos_mega_i1in`` (the same body, its first
+    step a copy of the tile's rows from the two planes), counted also in
+    ``mega_call.i1in_launches``; it takes no ``ablate``.
+
     ``ablate`` (one of ABLATE_VARIANTS on a card; results are wrong)
-    launches ``sos_mega_ablate`` (csrc/mega_ablate.cu), the same body with
+    launches ``sos_mega_ablate`` (csrc/mega_ablate.cuh, one library a type
+    and mode: ``ABLATE_LIBRARIES``), the same body with
     those stages cut out, as mega_plain(ablate=...) cuts them.
     ``ablate_build=True`` takes that library for ``ablate=""`` too: its
     build of the solve itself, which must equal sos_mega to the bit."""
@@ -580,37 +600,52 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
     if C % cb:
         raise ValueError(f"batch {C} is not a multiple of the tile size {cb}")
     mask = ablate_mask(ablate)
+    host_i1 = i1dn is not None
     if not pack.is_cuda:
         outs = [mega_plain(*ms.block_of(pack, cpar, tiles, i, cb), ops, tol=tol,
-                           max_orders=max_orders, full=full, ablate=ablate)
+                           max_orders=max_orders, full=full, ablate=ablate,
+                           **ms.i1_block_of(i1dn, i1up, i, cb))
                 for i in range(C // cb)]
         # columns are axis 1 of the full planes and of stats, axis 0 of rows
         axis = lambda k: 1 if full or k == len(outs[0]) - 1 else 0
         return tuple(torch.cat([o[k] for o in outs], dim=axis(k))
                      for k in range(len(outs[0])))
 
-    dt, mm, stream = ms._kernel_codes(ops, pack, cpar, tiles)
+    planes = (i1dn, i1up) if host_i1 else ()
+    dt, mm, stream = ms._kernel_codes(ops, pack, cpar, tiles, *planes)
+    if any(tuple(p.shape) != (L, C, Mp) for p in planes):
+        raise ValueError(f"i1dn / i1up must be ({L}, {C}, {Mp}); got "
+                         f"{[tuple(p.shape) for p in planes]}")
     if Mp > MAX_RESIDENT_MP or cb > MAX_COLS_PER_TILE:
         raise ValueError(f"the resident kernel takes Mp <= {MAX_RESIDENT_MP} and "
                          f"tiles of <= {MAX_COLS_PER_TILE} columns; got Mp={Mp}, "
                          f"cols_per_tile={cb}")
     if ablate_build is None:
         ablate_build = mask != 0
-    if ablate_build:
+    if host_i1 and ablate_build:
+        raise ValueError("the host-I1 kernel sos_mega_i1in takes no ablate flags")
+    if host_i1:
+        lib = cuda_build.library("megakernel")
+        blocks_fn = lib.sos_mega_i1in_blocks
+        launch = lambda *a: lib.sos_mega_i1in(i1dn.data_ptr(), i1up.data_ptr(), *a)
+        name = "sos_mega_i1in"
+    elif ablate_build:
         if mask and mask not in {ablate_mask(v) for v in ABLATE_VARIANTS}:
             raise ValueError(f"ablate={ablate!r} is not built; the variants are "
                              f"{ABLATE_VARIANTS}")
-        if Mp > 256 or ops.mm == "bf16x5":
-            raise ValueError("the ablated kernel takes Mp <= 256 and mm 'bf16x3' "
-                             f"or 'highest'; got Mp={Mp}, mm={ops.mm!r}")
-        lib = cuda_build.library("mega_ablate")
+        source = ABLATE_LIBRARIES.get((ops.dtype, ops.mm))
+        if Mp > 256 or source is None:
+            raise ValueError("the ablated kernel takes Mp <= 256 and float32 'bf16x3' "
+                             f"or 'highest' or float64; got Mp={Mp}, {ops.dtype}, "
+                             f"mm={ops.mm!r}")
+        lib = cuda_build.library(source)
         blocks_fn = lambda *a: lib.sos_mega_ablate_blocks(mask, *a)
         launch, name = (lambda *a: lib.sos_mega_ablate(mask, *a)), "sos_mega_ablate"
     else:
         lib = cuda_build.library("megakernel")
         blocks_fn, launch, name = lib.sos_mega_blocks, lib.sos_mega, "sos_mega"
     dev, dtype = pack.device, ops.dtype
-    ws_tc, astk_tc = tc_operands(ops)
+    ws_tc, astk_tc = tc_operands(ops, surface_product=not host_i1)
     # the occupancy query, the shared-memory attribute and the launch act on
     # the current device
     with torch.cuda.device(dev):
@@ -636,9 +671,12 @@ def mega_call(pack, cpar, tiles, ops, *, tol: float, max_orders: int,
             float(tol), stream), name)
     mega_call.launches += 1
     mega_call.tc_launches += ws_tc is not None
+    mega_call.i1in_launches += host_i1
     return (*outs, stats)
 
 
 mega_call.launches = 0
 # launches whose products ran on the tensor cores (csrc/mega_mma.cuh)
 mega_call.tc_launches = 0
+# launches of sos_mega_i1in, the first order given from the host
+mega_call.i1in_launches = 0

@@ -366,6 +366,7 @@ def reset_launches() -> None:
         k.launches = 0
     for k in TC_KERNELS + (mega_call,):
         k.tc_launches = 0
+    mega_call.i1in_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -373,17 +374,22 @@ def reset_launches() -> None:
 # --------------------------------------------------------------------------
 
 def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
-                max_orders: int, full: bool):
+                max_orders: int, full: bool, i1dn=None, i1up=None):
     """The streamed order loop for one block of C columns.
 
-    pack (PK_W, L, C), cpar (CP_W, C), tiles (NI, C, Mp).  The loop runs
+    pack (PK_W, L, C), cpar (CP_W, C), tiles (NI, C, Mp).  The fields start
+    from passI's first order, or from the host's I₁ planes ``i1dn`` /
+    ``i1up`` (L, C, Mp) where they are given (no passI).  The loop runs
     while any column's ratio is ≥ tol and no column has reached
     max_orders; each column accumulates only while it is active, so its
     result does not depend on the other columns of the block.  One host
     sync per order reads the loop condition.  Returns (toa_dn, toa_up,
     srf_dn, srf_up (C, Mp), stats (3, C)), or with ``full`` (itot_dn,
     itot_up (L, C, Mp), stats)."""
-    fdn, fup = passI(pack, tiles, cpar, ops)
+    if i1dn is None:
+        fdn, fup = passI(pack, tiles, cpar, ops)
+    else:
+        fdn, fup = i1dn, i1up
     L, C, Mp = fdn.shape
     dtype = fdn.dtype
     real = torch.arange(Mp, device=fdn.device) < ops.nb_angles
@@ -422,14 +428,25 @@ def block_of(pack, cpar, tiles, i: int, cols_per_block: int):
             tiles[:, sl].contiguous())
 
 
+def i1_block_of(i1dn, i1up, i: int, cols_per_block: int) -> dict:
+    """{'i1dn', 'i1up'}: the host I₁ planes (L, Bp, Mp) of column block
+    ``i``, contiguous; {} without planes."""
+    if i1dn is None:
+        return {}
+    sl = slice(i * cols_per_block, (i + 1) * cols_per_block)
+    return dict(i1dn=i1dn[:, sl].contiguous(), i1up=i1up[:, sl].contiguous())
+
+
 def stream_order_loop(pack, cpar, tiles, ops: StreamOps, *, tol: float,
                       max_orders: int, cols_per_block: int,
-                      outputs: str = "summary"):
+                      outputs: str = "summary", i1dn=None, i1up=None):
     """Run the streamed order loop over the batch, one block of
     ``cols_per_block`` columns after another.
 
     pack (PK_W, L, Bp), cpar (CP_W, Bp), tiles (NI, Bp, Mp) with Bp a
-    multiple of the block size.  Returns summary → (toa_dn, toa_up,
+    multiple of the block size; ``i1dn`` / ``i1up`` (L, Bp, Mp), where
+    given, are the host's first order that each block starts from in place
+    of passI (:func:`solve_block`).  Returns summary → (toa_dn, toa_up,
     srf_dn, srf_up (Bp, Mp), stats (3, Bp)); full → (itot_dn, itot_up
     (Bp, L, Mp), stats)."""
     C = cols_per_block
@@ -440,7 +457,8 @@ def stream_order_loop(pack, cpar, tiles, ops: StreamOps, *, tol: float,
     outs = []
     for i in range(Bp // C):
         res = solve_block(*block_of(pack, cpar, tiles, i, C), ops, tol=tol,
-                          max_orders=max_orders, full=full)
+                          max_orders=max_orders, full=full,
+                          **i1_block_of(i1dn, i1up, i, C))
         if full:
             res = (res[0].transpose(0, 1), res[1].transpose(0, 1), res[2])
         outs.append(res)

@@ -7,9 +7,6 @@
 4. ``wildfire``  wildfire scenario (log-normal Mie aerosol), specular.
 5. ``fwc_sweep`` batched sweep with the FWC tabulated cloud phase function
                  on the 64×128 grid, float32.
-
-The Mie presets (``eva``, ``wildfire``) name models that are not ported
-yet: building their tables raises ``MieNotPortedError``.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``tools/ablate_kernel.py``.  Runs the
 kernel (``ops/megakernel.py::mega_call``) with a FIXED order count
 (``noconv``) on the 64×128 FWC batch and removes stages one variant at a
-time (``megakernel.ABLATE_VARIANTS``, built by ``csrc/mega_ablate.cu``);
+time (``megakernel.ABLATE_VARIANTS``, built by ``csrc/mega_ablate.cuh``);
 the difference of the times attributes the time to the stages.  Results
 are numerically wrong under ablation: timing only.
 

@@ -33,8 +33,11 @@ sweep kernels (down_sweep, up_sweep_smooth, the latter in three stages)
 repeat their plain versions operation by operation and must equal them to
 the bit, in float32 and in float64, at the main paths' widths.  So do the micro kernels (csrc/micro.cu), rep by
 rep, but for their three products (1e-5 of scale); the resident kernel's
-ablated builds (csrc/mega_ablate.cu) equal mega_plain with the same flags to
+ablated builds (csrc/mega_ablate.cuh) equal mega_plain with the same flags to
 1e-12 in float64, and their build of the solve equals sos_mega to the bit.
+The resident kernel with the first order from the host (sos_mega_i1in) is
+held against mega_plain started from the same planes as sos_mega is, and to
+sos_mega itself in float64 (1e-12).
 """
 import dataclasses
 
@@ -189,6 +192,95 @@ def test_mega_call_matches_plain(cuda, surface, full, dtype, mm, tol):
                 assert float(off.float().mean()) <= 1e-3, cb
             else:
                 assert _rel(k, p) <= tol, cb
+
+
+# the resident design's edge shapes for sos_mega_i1in: (angles, layers), Mp
+# 8, 64 and 256 (the widest 256-thread block)
+I1IN_GRIDS = {"mp8": (8, 16), "mp64": (64, 128), "mp256": (256, 24)}
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("dtype,mm,tol", [(torch.float64, "highest", 1e-12),
+                                          (torch.float32, "bf16x3", 1e-4)])
+@pytest.mark.parametrize("grid", list(I1IN_GRIDS), ids=list(I1IN_GRIDS))
+def test_mega_i1in_matches_plain(cuda, grid, dtype, mm, tol, surface):
+    """sos_mega_i1in (the first order from the host's planes) against
+    mega_plain started from the same planes: equal order counts and flags,
+    rows within 1e-12 (float64) / 1e-4 (float32, the products on the tensor
+    cores) of scale, summary and full outputs; in float64 also against
+    sos_mega, which evaluates I₁ itself (rtol 1e-12, equal counts).  Each
+    launch counts in mega_call.launches and mega_call.i1in_launches."""
+    grid = GridSpec(*I1IN_GRIDS[grid])
+    scenes, tables = _inputs(cuda, dtype, batch=16, grid=grid)
+    opts = SolverOptions(surface=surface, dtype=str(dtype).split(".")[1], mm=mm)
+    host = prepare_batch(scenes, tables, grid, opts, device=cuda, i1="host",
+                         cols_per_block=mk.default_cols_per_tile(mk.pad_angles(
+                             grid.nb_angles)))
+    for full in (False, True):
+        kw = dict(tol=opts.tol, max_orders=opts.max_orders, full=full)
+        ms.reset_launches()
+        got = mk.mega_call(host.pack, host.cpar, host.tiles, host.ops, **kw,
+                           **host.i1_planes())
+        torch.cuda.synchronize()
+        assert (mk.mega_call.launches, mk.mega_call.i1in_launches) == (1, 1)
+        assert mk.mega_call.tc_launches == (dtype == torch.float32 and mm != "highest")
+        want = mk.mega_plain(host.pack, host.cpar, host.tiles, host.ops, **kw,
+                             **host.i1_planes())
+        assert torch.equal(got[-1][mk.ST_N], want[-1][mk.ST_N]), full
+        assert torch.equal(got[-1][mk.ST_CONV], want[-1][mk.ST_CONV])
+        for k, p in zip(got[:-1], want[:-1]):
+            assert bool(torch.isfinite(k).all())
+            rows = [0, grid.nb_layers - 1] if full else slice(None)
+            assert _rel(k[rows], p[rows]) <= tol, full
+    if dtype == torch.float64:
+        kern = prepare_batch(scenes, tables, grid, opts, device=cuda,
+                             cols_per_block=host.cols_per_block)
+        kw = dict(tol=opts.tol, max_orders=opts.max_orders, full=False)
+        a = mk.mega_call(host.pack, host.cpar, host.tiles, host.ops, **kw,
+                         **host.i1_planes())
+        b = mk.mega_call(kern.pack, kern.cpar, kern.tiles, kern.ops, **kw)
+        assert torch.equal(a[-1][mk.ST_N], b[-1][mk.ST_N])
+        for x, y in zip(a[:4], b[:4]):
+            torch.testing.assert_close(x, y, rtol=1e-12, atol=1e-14 * float(y.abs().max()))
+
+
+def test_mega_i1in_rejects_what_it_does_not_take(cuda):
+    scenes, tables = _inputs(cuda, torch.float64)
+    opts = SolverOptions(dtype="float64")
+    host = prepare_batch(scenes, tables, GRID, opts, device=cuda, i1="host")
+    kw = dict(tol=opts.tol, max_orders=opts.max_orders, full=False)
+    planes = host.i1_planes()
+    with pytest.raises(ValueError, match="ablate"):
+        mk.mega_call(host.pack, host.cpar, host.tiles, host.ops, ablate="noconv",
+                     **kw, **planes)
+    with pytest.raises(ValueError, match="i1dn"):
+        mk.mega_call(host.pack, host.cpar, host.tiles, host.ops, **kw,
+                     i1dn=planes["i1dn"][:-1].contiguous(),
+                     i1up=planes["i1up"][:-1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.mega_call(host.pack, host.cpar, host.tiles, host.ops, **kw,
+                     i1dn=planes["i1dn"].float(), i1up=planes["i1up"])
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["resident", "streamed"])
+def test_host_i1_solve_on_card_matches_cpu(cuda, stream):
+    """solve_batch_mega(i1='host') in float64 on the card against the CPU:
+    equal order counts, I_total and I₁ within rtol 1e-9; no passI launched."""
+    opts = SolverOptions(dtype="float64")
+    ms.reset_launches()
+    got = solve_batch_mega(*_inputs(cuda, torch.float64), GRID, opts, i1="host",
+                           stream=stream, device=cuda)
+    assert ms.passI.launches == 0
+    assert (mk.mega_call.i1in_launches == 1) != stream
+    scenes, tables = _inputs(cuda, torch.float64)
+    cpu = torch.device("cpu")
+    want = solve_batch_mega(scenes.map(lambda x: x.cpu()),
+                            PhaseTables(*(t.cpu() for t in (tables.p0_atm, tables.p_atm,
+                                                            tables.p0_aer, tables.p_aer))),
+                            GRID, opts, i1="host", stream=stream, device=cpu)
+    assert torch.equal(got.n_orders.cpu(), want.n_orders)
+    for x, y in ((got.i_total, want.i_total), (got.i1, want.i1)):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-9, atol=1e-11 * float(y.abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -614,7 +706,7 @@ def test_sweep_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 # ---- the tools' kernels: micro_ops, micro_pass and the ablated resident
-# kernel (csrc/micro.cu, csrc/mega_ablate.cu) ----
+# kernel (csrc/micro.cu, csrc/mega_ablate.cuh) ----
 
 @pytest.mark.parametrize("pat", micro.PATTERNS)
 def test_micro_ops_kernel_matches_plain(cuda, pat):

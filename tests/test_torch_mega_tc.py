@@ -367,3 +367,27 @@ def test_solve_batch_docstring_states_the_default_engine():
     assert sig.parameters["engine"].default == "reference"      # as in the JAX package
     doc = " ".join(inspect.getdoc(solve_batch).split())
     assert "``engine='reference'`` (default): the reference engine" in doc
+
+
+@pytest.mark.parametrize("mm", ["bf16x3", "highest"])
+def test_mega_call_with_host_i1_launches_sos_mega_i1in(fake_card, mm):
+    """With the host's I₁ planes, mega_call launches sos_mega_i1in: the two
+    planes first, then sos_mega's arguments, with no surface-operator copy
+    (the kernel evaluates no I₁); it counts in mega_call.i1in_launches."""
+    sb = _batch(64, mm)
+    ops = _on_card(sb.ops)
+    L, C, Mp = sb.pack.shape[1], sb.pack.shape[2], ops.mp
+    i1dn = torch.zeros((L, C, Mp))
+    i1up = torch.ones((L, C, Mp))
+    mk.mega_call(sb.pack, sb.cpar, sb.tiles, ops, tol=1e-4, max_orders=6, full=False,
+                 i1dn=i1dn, i1up=i1up)
+    names = [c[0] for c in fake_card.calls]
+    assert names == ["sos_mega_i1in_blocks", "sos_mega_i1in"]
+    (_, args, current), = [c for c in fake_card.calls if c[0] == "sos_mega_i1in"]
+    assert args[:2] == (i1dn.data_ptr(), i1up.data_ptr())
+    assert args[6] == sb.pack.data_ptr() and current == (sb.pack.device,)
+    tc = mm != "highest"
+    assert args[14] == (ops.ws_tc.data_ptr() if tc else None) and args[15] is None
+    assert (mk.mega_call.launches, mk.mega_call.tc_launches,
+            mk.mega_call.i1in_launches) == (1, int(tc), 1)
+    assert len(args) == len(cuda_build.SIGNATURES["megakernel"]["sos_mega_i1in"])

@@ -21,7 +21,7 @@ import torch
 from sos_rt_tpu.config import GridSpec as JGrid, SolverOptions as JOpts
 from sos_rt_tpu.fused import solve_batch_mega as j_solve_mega
 from sos_rt_tpu.parallel import solve_batch as j_solve_batch
-from sos_rt_tpu_torch import NotPortedError, convert, fused
+from sos_rt_tpu_torch import convert, fused
 from sos_rt_tpu_torch.fused import prepare_batch, resolve_stream, solve_batch_mega
 from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.ops import megastream as ms
@@ -166,10 +166,18 @@ def test_stream_none_picks_by_grid():
 
 
 def test_host_first_order_still_raises(tables):
+    """The first order from the host is ported (it used to raise): the
+    resident execution runs it, and it equals the in-kernel first order;
+    an unknown mode still raises."""
     opts = JOpts(surface="lambertian", dtype="float64")
     port = port_inputs(jax_scenes(2), tables, GRID, opts)
-    with pytest.raises(NotPortedError, match="i1="):
-        solve_batch_mega(*port, stream=False, i1="host", device="cpu")
+    host = solve_batch_mega(*port, stream=False, i1="host", device="cpu")
+    kern = solve_batch_mega(*port, stream=False, device="cpu")
+    assert torch.equal(host.n_orders, kern.n_orders) and host.i1 is not None
+    assert_close_scaled(host.i_total.numpy(), kern.i_total.numpy(), rtol=1e-12,
+                        atol_scale=1e-14)
+    with pytest.raises(ValueError, match="i1 mode"):
+        solve_batch_mega(*port, stream=False, i1="device", device="cpu")
 
 
 def test_predict_sort_key_clamps_the_score(tables, monkeypatch):

@@ -172,7 +172,12 @@ def test_routes_outside_the_slice_raise(tables56):
     streamed = solve_batch_mega(*port, stream=True, device="cpu")
     assert bool(resident.converged.all())
     assert torch.equal(resident.n_orders, streamed.n_orders)
-    _raises_not_ported(lambda: solve_batch_mega(*port, i1="host", device="cpu"))
+    # so is the first order from the host: it runs, returns I₁, and equals
+    # the in-kernel one
+    host = solve_batch_mega(*port, i1="host", device="cpu")
+    assert torch.equal(host.n_orders, mega.n_orders) and host.i1 is not None
+    assert_close_scaled(host.i_total.numpy(), mega.i_total.numpy(), rtol=1e-12,
+                        atol_scale=1e-14)
     # a small-µ grid without the band-coverage grant (mega_supported false)
     # goes to the fused engine as a whole: a full solution with its i1
     small = JGrid(201, 48)
@@ -189,10 +194,14 @@ def test_routes_outside_the_slice_raise(tables56):
     np.testing.assert_array_equal(got.n_orders.numpy(), np.asarray(ref.n_orders))
     assert_close_scaled(got.i_total.numpy(), ref.i_total, rtol=1e-9, atol_scale=1e-11)
     assert got.i1 is not None
+    # the Mie models are ported: the tables equal the JAX package's
+    from sos_rt_tpu.models import build_phase_tables as j_build
+
     for kind in ("mie", "lognormal", "eva", "wildfire"):
-        _raises_not_ported(lambda: build_phase_tables(
-            kind, GRID.mu(), 0.5, cache=False, indx=1.5, r=0.1, lambda0=0.55,
-            n0=1.0, r_m=0.1, sig=1.2))
+        kw = dict(indx=1.5, r=0.1, lambda0=0.55, n0=1.0, r_m=0.1, sig=1.2)
+        for a, b in zip(build_phase_tables(kind, GRID.mu(), 0.5, cache=False, **kw),
+                        j_build(kind, GRID.mu(), 0.5, cache=False, **kw)):
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=0.0)
     with pytest.raises(ValueError):
         solve_batch(*port, engine="other", device="cpu")
     with pytest.raises(ValueError):
