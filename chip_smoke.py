@@ -137,6 +137,16 @@ Phases, one JSON line each on stdout:
 15. ``single_layer`` tests/test_vdh.py's semi-infinite case (96 × 2400,
                  τ* = 25, float64) on the card: equal to the CPU (rtol
                  1e-9) and to the H-function law at µ ≥ 0.3 (rtol 1e-3).
+15b. ``edge_layers`` an aerosol layer that reaches the bottom layer and one
+                 that starts in the top layer (EDGE_COLUMNS, the columns of
+                 tests/test_torch_edge_layers.py, 48×40): the reference
+                 engine, the mega engine resident and streamed, and the
+                 fused engine on the card in float64 (equal order counts
+                 and rtol 1e-9 against the reference engine on the CPU) and
+                 float32 (equal order counts, p50 relative error below
+                 F64_P50_TOL), every field finite, a synchronise after
+                 each solve; the launch counts show the fused engine
+                 taking the bottom batch of the mega engine.
 16. ``fused_f64`` solve_batch(engine='fused') in float64 on the card against
                  the same solve on the CPU, on GridSpec(56, 64) and on the
                  Gauss grid GridSpec(51, 24) with small-µ columns: equal
@@ -168,10 +178,18 @@ Phases, one JSON line each on stdout:
                  each rep on the same input (the second rep's plain version
                  on the kernel's first rep): to the bit but for the three
                  products (1e-5 of scale);
-                 one library call a rep where one torch call computes it.
+                 one library call a rep where one torch call computes it;
+                 each pattern's share of its per-pass bound; and each
+                 kernel's rep loop in its SASS (tools/sass.py: cuobjdump),
+                 which must issue at least the shared loads and stores of
+                 its source (MICRO_REP_LOOP_LEAST).
 20. ``micro_pass`` ``python -m sos_rt_tpu_torch.tools.micro_pass`` through its
                  main(); each of the 9 (mode, g) pairs against its plain
-                 version to the bit, on the tool's ones and a random field.
+                 version to the bit, on the tool's ones and a random field;
+                 each pair's share of its per-pass bound, one call (the
+                 tool's ms, the host's dispatch included) and queued (the
+                 card's own, tools/card.py::queued_ms); each kernel's
+                 pass loop in its SASS, as for micro_ops.
 21. ``ablate``   the resident kernel's ablated builds (csrc/mega_ablate.cuh,
                  built by mega_ablate.cu, mega_ablate_f32.cu, mega_ablate_f64.cu):
                  its build of the solve itself (no flag) equal to sos_mega to
@@ -190,7 +208,8 @@ after mega_call; max_abs_err over both
 paths' blocks; share_of_bound = bound_ms / ms for the sweep and micro
 kernels; for micro_ops and micro_pass the sums over their patterns' K1
 calls and their pairs' calls, with pass_bound_ms, the sum of the per-pass
-bounds their tools time against, and its share), the nvidia-smi line and,
+bounds their tools time against, and its share; micro_pass also its
+queued_ms and queued_pass_bound_share), the nvidia-smi line and,
 last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 exits non-zero and prints no result.  Without CUDA, or without the
@@ -226,6 +245,16 @@ SOURCE = "sos_rt_tpu_torch/csrc/megastream.cu"
 MEGA_SOURCE = "sos_rt_tpu_torch/csrc/megakernel.cu"
 FUSED_SOURCE = "sos_rt_tpu_torch/csrc/fused_sweeps.cu"
 MICRO_SOURCE = "sos_rt_tpu_torch/csrc/micro.cu"
+# the least shared loads and stores (LDS, STS) that the rep (pass) loop of
+# each micro kernel issues in its SASS, from micro.cu: a row pattern one
+# float4 of each of a warp's 8 rows, read and written; smooth each of a
+# warp's 2 rows' float2 and sv[idx], and the float2 back; matmul a 4-k step
+# (8 rows' float4s, a2's two float4s of each k) and its 8 rows' two float4s
+# back; the wgmma products two reps a loop, each its 32 float2 splits and its
+# 32 float2 stores; a pass a thread's 8 float4s, or for chunk / chunk2d
+# those of the bodies of 1, 2, 4 and 8 float4s that the loop holds
+MICRO_REP_LOOP_LEAST = {"smooth": (4, 2), "matmul": (16, 16), "matmul_def": (64, 64),
+                        "matmul_high": (64, 64), "chunk": (15, 15), "chunk2d": (15, 15)}
 # micro_ops products against their plain versions, of scale: the kernel sums
 # 128 products in another order than cuBLAS (matmul) or sums the exact bf16
 # products with float32 accumulators where the plain version rounds a float64
@@ -2119,6 +2148,100 @@ def phase_sweep_orders(device):
           "checked_columns": 8, "max_rel_to_column": worst})
 
 
+# the columns of tests/test_torch_edge_layers.py, (z_up, z_down) km on a
+# 48-angle x 40-layer grid from z0 = 120 km: an aerosol layer that reaches
+# the bottom layer (the mega engine hands such a batch to the fused engine)
+# and one that starts in the top layer
+EDGE_GRID = (48, 40)
+EDGE_COLUMNS = {"bottom": ((25.0, 0.1), (25.0, 0.3), (25.0, 1.0), (3.0, 0.5)),
+                "top": ((119.0, 17.0), (120.0, 17.0))}
+
+
+def edge_scenes(zs, device):
+    """The default scene over len(zs) columns with the given layer bounds
+    and albedos / aerosol depths spread as tests/torch_cases.jax_scenes
+    spreads them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.config import Scene
+    from sos_rt_tpu_torch.parallel import broadcast_scene
+
+    B = len(zs)
+    t = lambda v: torch.as_tensor(np.asarray(v, np.float64), device=device)
+    return dataclasses.replace(broadcast_scene(Scene(), B, device=device),
+                               z_up=t([z[0] for z in zs]), z_down=t([z[1] for z in zs]),
+                               grd_alb=t(np.linspace(0.0, 0.8, B)),
+                               tau_star_aer=t(np.linspace(0.02, 0.35, B)),
+                               alb_aer=t(np.linspace(0.7, 1.0, B)))
+
+
+def phase_edge_layers(device):
+    """An aerosol layer in the bottom or the top layer on the card: the
+    reference engine, the mega engine resident and streamed, and the fused
+    engine, in float64 (against the reference engine on the CPU: equal order
+    counts, rtol 1e-9) and float32 (equal order counts, p50 relative error
+    below F64_P50_TOL); every field finite; the mega engine's launches show
+    the fused engine taking the bottom batch and the mega kernels the top
+    one."""
+    import torch
+
+    from sos_rt_tpu_torch.config import GridSpec, SolverOptions
+    from sos_rt_tpu_torch.fused import solve_batch_fused, solve_batch_mega
+    from sos_rt_tpu_torch.ops import megastream as ms
+    from sos_rt_tpu_torch.parallel import solve_batch
+
+    grid, cpu = GridSpec(*EDGE_GRID), torch.device("cpu")
+    engines = {
+        "reference": lambda *a: solve_batch(*a, engine="reference", device=device),
+        "mega_resident": lambda *a: solve_batch_mega(*a, stream=False, device=device),
+        "mega_streamed": lambda *a: solve_batch_mega(*a, stream=True, device=device),
+        "fused": lambda *a: solve_batch_fused(*a, device=device)}
+    out = {"phase": "edge_layers", "grid": list(EDGE_GRID), "cases": []}
+    for edge, zs in EDGE_COLUMNS.items():
+        ref = solve_batch(edge_scenes(zs, cpu), test_tables(grid, cpu, torch.float64), grid,
+                          SolverOptions(surface="lambertian", dtype="float64"),
+                          engine="reference", device=cpu)
+        for dtype in ("float64", "float32"):
+            tdt = getattr(torch, dtype)
+            args = (edge_scenes(zs, device), test_tables(grid, device, tdt), grid,
+                    SolverOptions(surface="lambertian", dtype=dtype))
+            for name, run in engines.items():
+                what = f"edge_layers {edge} {dtype} {name}"
+                ms.reset_launches()
+                sol = run(*args)
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in launch_counts().items() if v}
+                if not bool(torch.isfinite(sol.i_total).all()):
+                    fail(f"{what}: non-finite field")
+                if name == "reference":
+                    no_launches(launches, what)
+                elif name == "fused" or edge == "bottom":
+                    if not launches.get("down_sweep") or launches.get("mega_call") \
+                            or launches.get("passI"):
+                        fail(f"{what}: expected the fused engine's kernels, got {launches}")
+                elif not launches.get("mega_call" if name == "mega_resident" else "passI"):
+                    fail(f"{what}: expected the mega kernels, got {launches}")
+                case = {"edge": edge, "dtype": dtype, "engine": name,
+                        "n_orders": sol.n_orders.tolist(), "launches": launches}
+                if dtype == "float64":
+                    case["rel_err"] = same_solutions(sol, ref, 1e-9, what)
+                else:
+                    if not torch.equal(sol.n_orders.cpu(), ref.n_orders):
+                        fail(f"{what}: order counts {sol.n_orders.tolist()} vs float64 "
+                             f"{ref.n_orders.tolist()}")
+                    got, want = sol.i_total.cpu().double(), ref.i_total
+                    keep = want.abs() > 1e-12 * want.abs().max()
+                    rel = (got - want).abs()[keep] / want.abs()[keep]
+                    case["p50_rel_vs_f64"] = float(rel.median())
+                    if not case["p50_rel_vs_f64"] < F64_P50_TOL:
+                        fail(f"{what}: p50 relative error {case['p50_rel_vs_f64']:.3e}")
+                out["cases"].append(case)
+    emit(out)
+
+
 def run_tool(main, argv):
     """A tool's main(argv) with its printed lines captured: (result, lines)."""
     import contextlib
@@ -2163,6 +2286,40 @@ def micro_library_calls(xs, pk, a2):
             "reduce": None, "roll": None, "smooth": None,
             "matmul": lambda: v @ a2, "matmul_high": lambda: v @ a2,
             "matmul_def": lambda: vb @ ab}
+
+
+def micro_rep_loops(kind: str) -> dict:
+    """{pattern or pair: the shared loads, stores, barriers and tensor-core
+    instructions of its kernel's rep loop} from the micro library's SASS
+    (tools/sass.py); fails where a kernel of ``kind`` ('micro_ops' or
+    'micro_pass') has no loop that reads and writes shared memory, or one
+    with fewer loads or stores than MICRO_REP_LOOP_LEAST says."""
+    import re
+
+    from sos_rt_tpu_torch.ops import cuda_build, micro
+    from sos_rt_tpu_torch.tools import sass
+
+    out = {}
+    for name, rows in sass.library_loops(cuda_build._lib_path("micro"),
+                                         kind + "_kernel").items():
+        if kind == "micro_ops":
+            label = micro.PATTERNS[int(re.search(r"micro_ops_kernelILi(\d+)E", name).group(1))]
+        else:
+            mode, g = re.search(r"micro_pass_kernelILi(\d)ELi(\d+)E", name).groups()
+            label = micro.MODES[int(mode)] + (f" {g}" if int(g) else "")
+        rep = sass.rep_loop(rows)
+        if rep is None:
+            fail(f"{kind} {label}: no loop of its SASS reads and writes shared memory")
+        lds, sts = MICRO_REP_LOOP_LEAST.get(label, (8, 8))
+        if rep["lds"] < lds or rep["sts"] < sts:
+            fail(f"{kind} {label}: its rep loop issues {rep['lds']} LDS / {rep['sts']} STS, "
+                 f"fewer than the {lds} / {sts} of its source")
+        out[label] = {k: rep[k] for k in ("lds", "sts", "bar", "mma")}
+    want = len(micro.PATTERNS) if kind == "micro_ops" else len(
+        {(m, g if m == "static" else 0) for m, g in micro.PASS_PAIRS})
+    if len(out) != want:
+        fail(f"{kind}: SASS of {sorted(out)}, expected {want} kernels")
+    return out
 
 
 def phase_micro_ops(device):
@@ -2217,6 +2374,7 @@ def phase_micro_ops(device):
     plain_ms = {pat: timed(lambda: micro.micro_ops_plain(pat, micro.K1, xs[0], pk, a2), 1)
                 for pat in micro.PATTERNS}
     bounds = {pat: tool.call_bound_ms(pat, micro.K1) for pat in micro.PATTERNS}
+    sass_loops = micro_rep_loops("micro_ops")
     by_ops = sum(b for b, by in bounds.values() if by == "operations")
     emit({"phase": "micro_ops", "field": [micro.L, micro.C, micro.M2], "k1": micro.K1,
           "k2": micro.K2, "tool_lines": lines, "launches": launches,
@@ -2224,8 +2382,11 @@ def phase_micro_ops(device):
           "per_pattern": {pat: {**{k: per[pat].get(k) for k in ("us_per_pass", "bound_us",
                                                            "bound_by", "plain_us_per_pass",
                                                            "k1_ms", "k2_ms")},
+                                "share_of_pass_bound": per[pat]["bound_us"]
+                                / per[pat]["us_per_pass"],
                                 "library_us_per_rep": library[pat],
-                                "finite_at_k1": finite[pat]}
+                                "finite_at_k1": finite[pat],
+                                "rep_loop_sass": sass_loops[pat]}
                           for pat in micro.PATTERNS}})
     total_bound = sum(b for b, _ in bounds.values())
     ms_total = sum(per[p]["k1_ms"] for p in micro.PATTERNS)
@@ -2266,9 +2427,16 @@ def phase_micro_pass(device):
     field = micro.L * micro.C * micro.M2
     t_bytes = 2 * field * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = micro.K * 2 * field / PEAK_OPS["float32"] * 1e3
+    # the tool's ms is one call's, the host's dispatch of it included (the
+    # yardstick of the pass bound); queued_ms is the card's own a call
+    for r in res:
+        r["share_of_pass_bound"] = r["bound_us"] / r["us_per_pass"]
+        r["queued_share_of_pass_bound"] = r["bound_us"] * micro.K / 1e3 / r["queued_ms"]
     emit({"phase": "micro_pass", "field": [micro.L, micro.C, micro.M2], "passes": micro.K,
-          "tool_lines": lines, "launches": launches, "pairs": res})
+          "tool_lines": lines, "launches": launches, "pairs": res,
+          "rep_loop_sass": micro_rep_loops("micro_pass")})
     ms_total, bound = sum(r["ms"] for r in res), len(res) * max(t_bytes, t_ops)
+    queued_total = sum(r["queued_ms"] for r in res)
     # the tool's own bound: each pass's bytes through shared memory
     pass_bound = sum(r["bound_us"] for r in res) * micro.K / 1e3
     return {"name": "micro_pass", "route": "cuda", "source": MICRO_SOURCE,
@@ -2277,7 +2445,8 @@ def phase_micro_pass(device):
             "ms": ms_total, "plain_ms": sum(r["plain_ms"] for r in res),
             "bound_ms": bound, "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "share_of_bound": bound / ms_total, "pass_bound_ms": pass_bound,
-            "pass_bound_share": pass_bound / ms_total, "library_ms": None}
+            "pass_bound_share": pass_bound / ms_total, "queued_ms": queued_total,
+            "queued_pass_bound_share": pass_bound / queued_total, "library_ms": None}
 
 
 def phase_ablate(device):
@@ -2394,6 +2563,7 @@ def main(argv=None) -> int:
     phase_critical_albedo(device)
     phase_sweep_orders(device)
     phase_single_layer(device)
+    phase_edge_layers(device)
     phase_fused_f64(device)
     sweeps = phase_fused_canonical(device, sweep_abs)
     fused_abs = phase_fused_sweep(device)

@@ -32,7 +32,7 @@ import torch
 from sos_rt_tpu_torch.config import (SCENE_FIELDS, GridSpec, Scene, SolverOptions,
                                      full_precision_matmul, resolve_device,
                                      torch_dtype)
-from sos_rt_tpu_torch.grids import tau_profile
+from sos_rt_tpu_torch.grids import layer_indices, neighbour_index, tau_profile
 from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.ops import megastream as ms
 from sos_rt_tpu_torch.ops.first_order import first_order, first_order_mega_inputs
@@ -148,6 +148,17 @@ def resolve_stream(stream: bool | None, grid: GridSpec, dtype: torch.dtype) -> b
     mp = mk.pad_angles(grid.nb_angles)
     column = 4 * grid.nb_layers * mp * torch.finfo(dtype).bits // 8
     return column > RESIDENT_COLUMN_BUDGET or mp > mk.MAX_RESIDENT_MP
+
+
+def layer_reaches_ground(scenes: Scene, grid: GridSpec) -> bool:
+    """True when some column's aerosol layer ends in the bottom layer
+    (idx_down = L − 1).  The reference engine then joins the layers at
+    the bottom layer itself (its idx_down + 1 clamps to L − 1) and smooths
+    that row twice, once at the join and once with every row; the mega
+    kernels' up walk smooths each row once, so such a batch goes to the
+    fused engine, whose up sweep smooths as the reference does."""
+    _, idx_down = layer_indices(scenes.z0, scenes.z_up, scenes.z_down, grid.nb_layers)
+    return bool((idx_down == grid.nb_layers - 1).any())
 
 
 def coarse_problem(tables: PhaseTables, grid: GridSpec, device):
@@ -284,7 +295,7 @@ def prepare_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     tau_t = tau.T                                           # (L, Bp)
     drop = ((t_idx == idn) | (t_idx == iu - 1) | (t_idx == L - 1)).to(dtype)
     ch2 = (t_idx < iu).to(dtype)
-    r1 = (t_idx == idn + 1).to(dtype)
+    r1 = (t_idx == neighbour_index(idn + 1, L)).to(dtype)     # as build_pack's
     r2 = (t_idx == iu).to(dtype)
     dt = tau_t[1:] - tau_t[:-1]
     zrow = torch.zeros((1, Bp), dtype=dtype, device=device)
@@ -295,7 +306,8 @@ def prepare_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     alb_aer = cast(scenes.alb_aer)[None, :]
     coef_atm = torch.where(in_layer, w_atm[None, :] * alb_atm / 4.0, alb_atm / 4.0)
     coef_aer = torch.where(in_layer, w_aer[None, :] * alb_aer / 4.0, 0.0)
-    choice_a = band_choice(torch.gather(tau, 1, (idx_up - 1)[:, None])[:, 0]).to(dtype)
+    iu1 = neighbour_index(idx_up - 1, L)
+    choice_a = band_choice(torch.gather(tau, 1, iu1[:, None])[:, 0]).to(dtype)
     choice_bc = band_choice(torch.gather(tau, 1, idx_down[:, None])[:, 0]).to(dtype)
     # localized affine-scan sources: down c_t = (hdt_dn+hdt_up)_t·jₙ_t;
     # up c_t = (d_t·hdt_up_t + gs_t)·ivup·jₙ_t, gs_t = d_{t-1}·hdt_up_{t-1}
@@ -367,9 +379,10 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     the device, a thread block per tile of columns), ``None`` (default)
     the resident kernel where :func:`resolve_stream` finds the grid small
     enough.  A grid that needs the small-µ machinery (``mega_supported``
-    false: small-µ columns without the ``allow_small`` grant) hands the
-    whole batch to :func:`solve_batch_fused`, reduced to the summary rows
-    where those were asked for.  Each block of ``cols_per_block`` columns (streamed; default by
+    false: small-µ columns without the ``allow_small`` grant), or a batch
+    with an aerosol layer in the bottom layer (:func:`layer_reaches_ground`),
+    hands the whole batch to :func:`solve_batch_fused`, reduced to the
+    summary rows where those were asked for.  Each block of ``cols_per_block`` columns (streamed; default by
     :func:`default_cols_per_block`) or tile (resident; default by
     megakernel.default_cols_per_tile) runs its own order loop; per-column
     results do not depend on the block size, the order of the columns or
@@ -407,11 +420,12 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     device = resolve_device(device)
     stencils = stencils_for(grid)
     mk.ablate_flags(ablate)
-    if ablate and (resolve_stream(stream, grid, torch_dtype(opts.dtype))
-                   or not mk.mega_supported(grid, stencils, allow_small=allow_small)):
+    to_fused = (not mk.mega_supported(grid, stencils, allow_small=allow_small)
+                or layer_reaches_ground(scenes, grid))
+    if ablate and (resolve_stream(stream, grid, torch_dtype(opts.dtype)) or to_fused):
         raise ValueError("ablate flags act on the resident kernel only "
                          "(stream=False); the streamed passes take none")
-    if not mk.mega_supported(grid, stencils, allow_small=allow_small):
+    if to_fused:
         sol = solve_batch_fused(scenes, tables, grid, opts, device=device)
         return to_summary(sol) if outputs == "summary" else sol
     scenes = scene_on(scenes, device)
@@ -538,7 +552,8 @@ class FusedBatch:
             self.window = small_mu_window(tau, idx_up, idx_down, self.mu_s)
 
         # polyfit band selection
-        self.choice_a = band_choice(torch.gather(tau, 1, (idx_up - 1)[:, None])[:, 0])
+        iu1 = neighbour_index(idx_up - 1, L)
+        self.choice_a = band_choice(torch.gather(tau, 1, iu1[:, None])[:, 0])
         self.choice_bc = band_choice(torch.gather(tau, 1, idx_down[:, None])[:, 0])
         pmask = on_dev(stencils.poly_mask, torch.bool)
         valid_a = select_band_choice(pmask, self.choice_a[:, None])   # (B, band_max)

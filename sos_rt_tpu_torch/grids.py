@@ -33,8 +33,10 @@ def tau_profile(tau_star_atm, tau_star_aer, z0, z_up, z_down, nb_layers: int):
     Linear molecular τ over the column plus a linear aerosol ramp inside
     [idx_up, idx_down] and a constant ``tau_star_aer`` below
     (SOS_Aer_tau_profile.py:21-27).  Returns (tau (..., L), idx_up,
-    idx_down).  With z_down > 0, idx_down <= L − 2, which the first-order
-    closed forms rely on (ops/first_order.py).
+    idx_down).  An aerosol layer may reach the top (idx_up = 0) or the
+    bottom layer (idx_down = L − 1, whenever z_down lies within half a
+    layer of the ground): the neighbour layers idx_up − 1 and idx_down + 1
+    are then read through :func:`neighbour_index`.
     """
     tau_star_atm = torch.as_tensor(tau_star_atm)
     tau_star_aer = torch.as_tensor(tau_star_aer)
@@ -47,6 +49,15 @@ def tau_profile(tau_star_atm, tau_star_aer, z0, z_up, z_down, nb_layers: int):
         i < iu, torch.zeros_like(dtau_aer),
         torch.where(i <= idn, (i + 1 - iu) * dtau_aer, tau_star_aer[..., None]))
     return tau_mol + aer, idx_up, idx_down
+
+
+def neighbour_index(idx, nb_layers: int):
+    """The layer read at index ``idx`` of an (..., L) profile as the JAX
+    package's reference engine reads ``tau[idx]``: −1 wraps to L − 1, then
+    L clamps to L − 1.  The neighbour layers idx_up − 1 and idx_down + 1 of
+    an aerosol layer in the top or bottom layer both land on L − 1."""
+    idx = torch.where(idx < 0, idx + nb_layers, idx)
+    return torch.clamp(idx, 0, nb_layers - 1)
 
 
 def tau_profile_np(tau_star_atm, tau_star_aer, z0, z_up, z_down, nb_layers: int):

@@ -25,6 +25,7 @@ import math
 import torch
 
 from sos_rt_tpu_torch.config import MU0_RESONANCE_TOL, full_precision_matmul
+from sos_rt_tpu_torch.grids import neighbour_index
 
 # i1c tile rows (NI, M, B); unused rows (other surface) stay zero
 (T_DDA, T_DDR, T_DBA, T_DBR, T_UDA, T_UDR, T_RESDN,
@@ -118,8 +119,10 @@ def _first_order_block(surface, tau, mu, nb_angles, mu0, grd_alb, alb_atm,
     ca_b, cr_b = alb_atm * w_atm, alb_aer * w_aer              # region-B pair
 
     at = lambda src, idx: torch.gather(src, 1, idx[:, None])   # (B, 1)
-    tau_iu1, tau_iu = at(tau, idx_up - 1), at(tau, idx_up)
-    tau_id, tau_id1 = at(tau, idx_down), at(tau, idx_down + 1)
+    # the neighbour layers of the aerosol layer (L − 1 at an edge)
+    iu1, id1 = neighbour_index(idx_up - 1, L), neighbour_index(idx_down + 1, L)
+    tau_iu1, tau_iu = at(tau, iu1), at(tau, idx_up)
+    tau_id, tau_id1 = at(tau, idx_down), at(tau, id1)
 
     md = torch.arange(M - 1, device=dev)
     mu_m = mu[md]
@@ -189,7 +192,7 @@ def _first_order_block(surface, tau, mu, nb_angles, mu0, grd_alb, alb_atm,
 
     # =================== downward field, parameterized =====================
     tr_b_dn = sel2(zero, tau_iu1, tau_id)                          # att ref
-    e0r_dn = sel2(one, at(e0, idx_up - 1), at(e0, idx_down))
+    e0r_dn = sel2(one, at(e0, iu1), at(e0, idx_down))
     tr_s_dn = sel2(zero, tau_iu, tau_id1)                          # surf ref
     esr_dn = torch.exp(-(tau_star - tr_s_dn) / mu0)
 
@@ -244,8 +247,8 @@ def _first_order_block(surface, tau, mu, nb_angles, mu0, grd_alb, alb_atm,
                          col3(esr), col3(at(e0, t_row)), col3(at(e_s0, t_row)),
                          ang(mix(ca, cr, md)), ang(mix(ca, cr, mirror_dn)), **kw)[:, 0]
 
-    row_a = down_row(idx_up - 1, zero, one, zero, "A")
-    row_b = (down_row(idx_down, tau_iu1, at(e0, idx_up - 1), tau_iu, "B")
+    row_a = down_row(iu1, zero, one, zero, "A")
+    row_b = (down_row(idx_down, tau_iu1, at(e0, iu1), tau_iu, "B")
              + row_a * _clamp_exp((tau_id - tau_iu1) / mu_m[None, :]))
 
     before_dn = sel3(torch.zeros((B, 1, M - 1), dtype=dtype, device=dev),
@@ -272,7 +275,7 @@ def _first_order_block(surface, tau, mu, nb_angles, mu0, grd_alb, alb_atm,
 
     e0_last = e0[:, L - 1:]
     tr_b_up = sel2(tau_iu, tau_id1, tau_star)
-    e0r_up = sel2(at(e0, idx_up), at(e0, idx_down + 1), e0_last)
+    e0r_up = sel2(at(e0, idx_up), at(e0, id1), e0_last)
     tr_s_up = sel2(tau_iu1, tau_id, tau_star)
     esr_up = torch.exp(-(tau_star - tr_s_up) / mu0)
 
@@ -330,9 +333,9 @@ def _first_order_block(surface, tau, mu, nb_angles, mu0, grd_alb, alb_atm,
                        col3(esr), col3(at(e0, t_row)), col3(at(e_s0, t_row)),
                        ang(mix(ca, cr, mue)), ang(mix(ca, cr, mirror_up)), **kw)[:, 0]
 
-    row_c = (up_row(idx_down + 1, tau_star, e0_last, tau_star, "C")
+    row_c = (up_row(id1, tau_star, e0_last, tau_star, "C")
              + bc * _clamp_exp(-(tau_star - tau_id1) / mu_u[None, :]))
-    row_b_u = (up_row(idx_up, tau_id1, at(e0, idx_down + 1), tau_id, "B")
+    row_b_u = (up_row(idx_up, tau_id1, at(e0, id1), tau_id, "B")
                + row_c * _clamp_exp(-(tau_id1 - tau_iu) / mu_u[None, :]))
 
     before_up = sel3(ang(row_b_u), ang(row_c), ang(bc))
@@ -387,10 +390,10 @@ def first_order_mega_inputs(surface, tau, mu, nb_angles, mu0, grd_alb,
     f0 = math.pi / mu0                                        # (B, 1)
     tau_star = tau[:, -1:]
     gather = lambda idx: torch.gather(tau, 1, idx[:, None])
-    tau_iu1 = gather(idx_up - 1)
+    tau_iu1 = gather(neighbour_index(idx_up - 1, L))
     tau_iu = gather(idx_up)
     tau_id = gather(idx_down)
-    tau_id1 = gather(idx_down + 1)
+    tau_id1 = gather(neighbour_index(idx_down + 1, L))
     e0_of = lambda t: torch.exp(-t / mu0)
     es = e0_of(tau_star)
 
@@ -590,7 +593,9 @@ def first_order_mega_inputs(surface, tau, mu, nb_angles, mu0, grd_alb,
     tiles[T_ROWB] = pad_last(row_b)
 
     # surface BC from the full downward row at τ* (general + µ=0 column);
-    # the pure-atm coefficients hold under idx_down <= L-2 (grids.py)
+    # the pure-atm coefficients assume idx_down <= L-2; the mega engine
+    # hands a batch whose layer reaches the bottom layer to the fused
+    # engine (fused.layer_reaches_ground)
     dn_surf = dn_at(tau_star, tau_id, e0_of(tau_id), tau_id1,
                     alb_atm, zero_b) + row_b * _clamp_exp(
         (tau_star - tau_id) / mu_m[None, :])

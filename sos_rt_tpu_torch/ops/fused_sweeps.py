@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from sos_rt_tpu_torch.grids import neighbour_index
 from sos_rt_tpu_torch.ops import cuda_build
 from sos_rt_tpu_torch.ops.sweeps import SMOOTH_TOL
 
@@ -62,7 +63,10 @@ def build_pack(tau, idx_up, idx_down, dtype):
     drop = ((t == idn) | (t == iu - 1) | (t == L - 1)).to(dtype)
     ch1 = (t <= idn).to(dtype)
     ch2 = (t < iu).to(dtype)
-    r1 = (t == idn + 1).to(dtype)
+    # the lower join reads the layer below the aerosol layer, as the
+    # reference engine reads it: the bottom layer when the aerosol layer
+    # reaches it
+    r1 = (t == neighbour_index(idn + 1, L)).to(dtype)
     r2 = (t == iu).to(dtype)
     dt = tau[:, 1:] - tau[:, :-1]
     zcol = torch.zeros((B, 1), dtype=dtype, device=dev)

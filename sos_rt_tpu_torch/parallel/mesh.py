@@ -44,7 +44,7 @@ def mega_small_ok(scenes: Scene, grid: GridSpec) -> bool:
     polyfit band that covers the whole small-µ set, so the windowed /
     Taylor values would be overwritten anyway.  True for grids without
     small-µ columns."""
-    from sos_rt_tpu_torch.grids import tau_profile
+    from sos_rt_tpu_torch.grids import neighbour_index, tau_profile
     from sos_rt_tpu_torch.ops.megakernel import band_covers_small
     from sos_rt_tpu_torch.ops.sweeps import band_choice, stencils_for
 
@@ -58,17 +58,18 @@ def mega_small_ok(scenes: Scene, grid: GridSpec) -> bool:
                                scenes.z0, scenes.z_up, scenes.z_down,
                                grid.nb_layers)
     tau = tau.reshape(-1, grid.nb_layers)
-    ca = band_choice(torch.gather(tau, 1, (iu.reshape(-1) - 1)[:, None]))
+    iu1 = neighbour_index(iu.reshape(-1) - 1, grid.nb_layers)
+    ca = band_choice(torch.gather(tau, 1, iu1[:, None]))
     cb = band_choice(torch.gather(tau, 1, idn.reshape(-1)[:, None]))
     choices = set(torch.cat([ca, cb]).unique().tolist())
     return choices.issubset(ok)
 
 
 def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
-                opts: SolverOptions, mesh=None, buckets: int = 1,
-                engine: str = "reference", block_b: int = 16, outputs: str = "full",
-                cols_per_block: int | None = None, sort: str = "score",
-                device=None):
+                opts: SolverOptions, mesh=None, shard_tables: bool = False,
+                buckets: int = 1, engine: str = "reference", block_b: int = 16,
+                outputs: str = "full", cols_per_block: int | None = None,
+                sort: str = "score", device=None):
     """Solve a batch of columns on one GPU.
 
     ``engine='reference'`` (default): the reference engine
@@ -76,8 +77,10 @@ def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     batch), full outputs with ``i1``.  ``engine='mega'``: the whole-solve
     engine (resident or streamed, as fused.resolve_stream picks for the
     grid).  When a column's polyfit band does not cover the grid's small-µ
-    columns (:func:`mega_small_ok` false) the whole batch runs the fused
-    engine instead; the kernels' launch counts show which ran.
+    columns (:func:`mega_small_ok` false), or some column's aerosol layer
+    reaches the bottom layer (fused.layer_reaches_ground), the whole batch
+    runs the fused engine instead; the kernels' launch counts show which
+    ran.
     ``engine='fused'``: the fused engine (fused.solve_batch_fused), full
     outputs only.  In float32 with ``opts.mm=None`` the mega engine runs
     bf16x3 split products and the other two full-precision ones, as in the
@@ -90,8 +93,10 @@ def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     :class:`sos_rt_tpu_torch.fused.SweepSummary`.  ``sort='predict'`` keys
     the sort on the coarse-grid order-count pre-solve
     (fused.predict_order_count).  ``block_b`` is the TPU package's batch
-    block of the fused engine and has no effect here.  ``device`` defaults
-    to CUDA.
+    block of the fused engine and has no effect here.  The parameters
+    take the JAX package's places up to ``sort``; ``shard_tables`` (shard
+    per-column tables over ``mesh``) is ignored without a mesh, as there.
+    ``device`` defaults to CUDA.
     """
     from sos_rt_tpu_torch.fused import (scene_on, solve_batch_fused,
                                         solve_batch_mega, sort_key, tables_on,

@@ -33,7 +33,7 @@ import torch
 from sos_rt_tpu_torch.config import (GridSpec, Scene, SolverOptions,
                                      full_precision_matmul, resolve_device,
                                      torch_dtype)
-from sos_rt_tpu_torch.grids import tau_profile
+from sos_rt_tpu_torch.grids import neighbour_index, tau_profile
 from sos_rt_tpu_torch.ops.first_order import first_order
 from sos_rt_tpu_torch.ops.precision import make_split_dot
 from sos_rt_tpu_torch.ops.source import source_operator
@@ -191,7 +191,9 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
 
     # polyfit band selection (loop-invariant masks)
     at = lambda idx: torch.gather(tau, 1, idx[:, None])          # (B, 1)
-    choice_a = band_choice(at(idx_up - 1))[:, :, None]           # (B, 1, 1)
+    # the neighbour layers of the aerosol layer (L − 1 at an edge)
+    iu1, id1 = neighbour_index(idx_up - 1, L), neighbour_index(idx_down + 1, L)
+    choice_a = band_choice(at(iu1))[:, :, None]                  # (B, 1, 1)
     choice_bc = band_choice(at(idx_down))[:, :, None]
     poly_mask = torch.as_tensor(stencils.poly_mask, device=device)
     valid_a = select_band_choice(poly_mask, choice_a[:, 0])      # (B, band_max)
@@ -204,7 +206,7 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     mirror_up = 2 * M - 1 - torch.arange(M + 1, 2 * M, device=device)
     lamb_w = w_mu[:M] * mu[:M]
     # smoothing-join chain attenuations (region joins r1=idx_down+1, r2=idx_up)
-    att_join1 = torch.exp(-torch.clamp(at(idx_down + 1) - tau, min=0.0)[:, :, None]
+    att_join1 = torch.exp(-torch.clamp(at(id1) - tau, min=0.0)[:, :, None]
                           / mu_u)
     att_join2 = torch.exp(-torch.clamp(at(idx_up) - tau, min=0.0)[:, :, None] / mu_u)
     mask_join1 = (t_idx <= idn)[:, :, None]
@@ -267,7 +269,7 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
             r = field_now[cols, row]                               # (B, 2M)
             return (smooth_up_rows(r, mu, M) - r)[:, None, M + 1:]
 
-        d1 = delta_at(field, idx_down + 1)
+        d1 = delta_at(field, id1)
         field[:, :, M + 1:] += torch.where(mask_join1, d1 * att_join1, 0.0)
         d2 = delta_at(field, idx_up)
         field[:, :, M + 1:] += torch.where(mask_join2, d2 * att_join2, 0.0)

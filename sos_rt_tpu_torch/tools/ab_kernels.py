@@ -1,7 +1,7 @@
 """Kernels or solves of two checkouts on the same inputs, in turns, on one card.
 
 usage: python -m sos_rt_tpu_torch.tools.ab_kernels OTHER
-           [--what mega|stream|sweeps|sweeps_fwc|canonical|fused_canonical|fused_sweep]
+           [--what mega|stream|sweeps|sweeps_fwc|canonical|fused_canonical|fused_sweep|micro]
            [--rounds N]
 
 OTHER is the root of another checkout of this repository (an earlier
@@ -27,7 +27,17 @@ kernels, kernel wrappers or a whole solve on inputs made from
              two 128-column blocks, or B=64 through the fused engine);
 - ``fused_sweep`` the whole fused solve of phase ``fused_sweep`` (the
              4096-column sweep batch, ``engine="fused"``, full outputs,
-             ``sort="predict"``).
+             ``sort="predict"``);
+- ``micro``  the tools' kernels: every micro_ops pattern's slope between
+             K1 and K2 reps (each call the least of three), every
+             micro_pass pair's time a call, one call alone (the least of
+             three) and the card's own (``tools/card.py::queued_ms``),
+             all in µs a pass and the median of three; smooth's first rep
+             (``ops smooth rep 1``: k = 1 less k = 0, queued), where the
+             walk's first index lies near the row's end, as the tool's
+             later reps stop it at 2; and whether each output (micro_ops
+             at k = 1 and 2, micro_pass on a field of ones and a random
+             one) has the other checkout's bits.
 
 A kernel's time is the least of three timings of three launches each
 (CUDA events); a solve's is the least of three walls on the host clock,
@@ -40,22 +50,26 @@ medians per kernel.  Each checkout builds its kernel libraries in its own
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
 import subprocess
 import sys
 
+from sos_rt_tpu_torch.tools import card
+
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SETUP = r"""
-import dataclasses, json, sys
+import dataclasses, json, statistics, sys
 import numpy as np
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 dev = torch.device("cuda")
 best = lambda fn: min(cs.timed(fn, 3) for _ in range(3))
+unit, bits = "ms", {}
 """
 
 TURNS = {
@@ -117,6 +131,47 @@ calls = {k: kern for k, (kern, _) in cs.sweep_calls(fb, cs.second_order_source(f
 """,
 }
 
+# every micro_ops pattern's slope, every micro_pass pair's time a call (one
+# call, and the card's own: card.queued_ms, whose source the turn carries,
+# since the other checkout's card.py may lack it) in µs a pass, smooth's
+# first rep, and a digest of each output at k = 1 and 2 (micro_pass: the
+# tool's field of ones and a random one), so that the checkouts' bits compare
+TURNS["micro"] = (
+    f"QUEUED_RUN, QUEUE_SPIN_CYCLES = {card.QUEUED_RUN}, {card.QUEUE_SPIN_CYCLES}\n"
+    + inspect.getsource(card.queued_ms) + r"""
+import hashlib
+from sos_rt_tpu_torch.ops import micro
+
+unit = "us_per_pass"
+xs, pk, a2 = micro.make_inputs(0, dev)
+kw = dict(split=micro.split_a2(a2), mu=micro.mu_up(dev))
+ones = torch.ones_like(xs[0])
+ops = lambda pat, k: micro.micro_ops_call(pat, k, xs[0], pk, a2, **kw)
+timed = lambda fn: min(cs.timed(fn, 1) for _ in range(3))
+
+
+def slope(pat):
+    return lambda: ((timed(lambda: ops(pat, micro.K2)) - timed(lambda: ops(pat, micro.K1)))
+                    / (micro.K2 - micro.K1) * 1e3)
+
+
+def per_pass(mode, g, clock):
+    return lambda: clock(lambda: micro.micro_pass_call(mode, g, ones)) / micro.K * 1e3
+
+
+digest = lambda t: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+calls = {f"ops {pat}": slope(pat) for pat in micro.PATTERNS}
+calls["ops smooth rep 1"] = lambda: (queued_ms(lambda: ops("smooth", 1))
+                                     - queued_ms(lambda: ops("smooth", 0))) * 1e3
+calls.update({f"pass {mode} {g}": per_pass(mode, g, timed) for mode, g in micro.PASS_PAIRS})
+calls.update({f"pass {mode} {g} queued": per_pass(mode, g, queued_ms)
+              for mode, g in micro.PASS_PAIRS})
+bits = {f"ops {pat} k={k}": digest(ops(pat, k)) for pat in micro.PATTERNS for k in (1, 2)}
+bits.update({f"pass {mode} {g} {name}": digest(micro.micro_pass_call(mode, g, x))
+             for mode, g in micro.PASS_PAIRS for name, x in (("ones", ones), ("rand", xs[1]))})
+best = lambda fn: statistics.median(fn() for _ in range(3))
+""")
+
 CELL = r"""
 from sos_rt_tpu_torch.config import SolverOptions
 from sos_rt_tpu_torch.parallel import solve_batch
@@ -162,7 +217,7 @@ solve = lambda: solve_batch(scenes, tables[torch.float32], preset.grid, preset.o
 
 REPORT = r"""
 out = {name: best(fn) for name, fn in calls.items()}
-print(json.dumps({"ms": out, "device": torch.cuda.get_device_name(0)}))
+print(json.dumps({unit: out, "bits": bits, "device": torch.cuda.get_device_name(0)}))
 """
 
 
@@ -182,15 +237,20 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args(argv)
     other = os.path.abspath(args.other)
-    times = {"this": {}, "other": {}}
+    times, bits = {"this": {}, "other": {}}, {}
+    unit = "us_per_pass" if args.what == "micro" else "ms"
     for _ in range(args.rounds):
         for who, root in (("other", other), ("this", HERE), ("this", HERE), ("other", other)):
             rec = {"checkout": who, "what": args.what, **turn(root, args.what)}
-            for name, ms in rec["ms"].items():
-                times[who].setdefault(name, []).append(ms)
+            for name, t in rec[unit].items():
+                times[who].setdefault(name, []).append(t)
+            bits[who] = rec.pop("bits")
             print(json.dumps(rec), flush=True)
-    print(json.dumps({f"{who}_ms": {k: statistics.median(v) for k, v in t.items()}
-                      for who, t in times.items()}), flush=True)
+    summary = {f"{who}_{unit}": {k: statistics.median(v) for k, v in t.items()}
+               for who, t in times.items()}
+    if bits["this"]:
+        summary["same_bits"] = {k: v == bits["other"].get(k) for k, v in bits["this"].items()}
+    print(json.dumps(summary), flush=True)
     return 0
 
 

@@ -61,3 +61,31 @@ def best_ms(fn, device, reps: int = 3) -> float:
         fn()
         best = min(best, (time.perf_counter() - t0) * 1e3)
     return best
+
+
+# calls of a queued run, and the cycles the card spins before it (~10 ms
+# at 1.98 GHz, longer than the host takes to queue the run)
+QUEUED_RUN = 20
+QUEUE_SPIN_CYCLES = 20_000_000
+
+
+def queued_ms(fn, reps: int = 3) -> float:
+    """The card's own time of a call of ``fn``, in ms: the least of ``reps``
+    runs of QUEUED_RUN calls queued behind a spin of the card
+    (``torch.cuda._sleep``), each over its calls, after one warm-up call.
+    The calls run back to back, so the host's dispatch of each, which one
+    call alone (:func:`best_ms`) carries, stays out."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        start.record()
+        for _ in range(QUEUED_RUN):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / QUEUED_RUN)
+    return best

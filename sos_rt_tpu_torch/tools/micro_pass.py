@@ -8,7 +8,10 @@ runtime loop over chunks of g layers, a barrier each), ``static g`` (the
 same loop unrolled at compile time), ``chunk2d g`` (as ``chunk``: the
 TPU's reshape has no counterpart).  Prints the call's ms (CUDA events,
 least of three), µs per pass, the effective GB/s of 8 MiB a pass (read +
-write), the pass's bound through shared memory and the plain version's ms.
+write), the pass's bound through shared memory, the plain version's ms
+and the card's own ms a call (``tools/card.py::queued_ms``: calls queued
+back to back, without the host's dispatch of each, which one call
+carries).
 
 usage: python -m sos_rt_tpu_torch.tools.micro_pass [--device cpu]
 
@@ -22,7 +25,7 @@ import argparse
 import torch
 
 from sos_rt_tpu_torch.ops import micro
-from sos_rt_tpu_torch.tools.card import best_ms, smem_bytes_per_s
+from sos_rt_tpu_torch.tools.card import best_ms, queued_ms, smem_bytes_per_s
 
 PASS_BYTES = micro.L * micro.C * micro.M2 * 4 * 2      # read + write
 
@@ -37,8 +40,10 @@ def run(mode: str, g: int, x, device, smem_rate) -> dict:
             f"{out['gb_per_s']:6.0f} GB/s eff")
     if device.type == "cuda":
         out.update(bound_us=PASS_BYTES / smem_rate * 1e6,
-                   plain_ms=best_ms(lambda: micro.micro_pass_plain(mode, g, x), device))
-        line += f", bound {out['bound_us']:6.3f} us/pass, plain {out['plain_ms']:7.3f} ms"
+                   plain_ms=best_ms(lambda: micro.micro_pass_plain(mode, g, x), device),
+                   queued_ms=queued_ms(lambda: micro.micro_pass_call(mode, g, x)))
+        line += (f", bound {out['bound_us']:6.3f} us/pass, plain {out['plain_ms']:7.3f} ms, "
+                 f"queued {out['queued_ms']:7.3f} ms")
     print(line, flush=True)
     return out
 

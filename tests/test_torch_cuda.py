@@ -733,6 +733,51 @@ def test_micro_pass_kernel_matches_plain(cuda, mode, g):
     assert torch.equal(micro.micro_pass_call(mode, g, x), micro.micro_pass_plain(mode, g, x))
 
 
+@pytest.mark.parametrize("pat", ("matmul_def", "matmul_high", "matmul"))
+def test_micro_products_three_reps(cuda, pat):
+    """The products carry their accumulators from one rep to the next
+    (wgmma's start a fresh sum with scale-d 0): each of three reps against
+    the plain version on the kernel's previous rep, 1e-5 of scale."""
+    xs, pk, a2 = micro.make_inputs(0, cuda)
+    x = xs[0] * 1e-2           # three reps stay finite
+    outs = [micro.micro_ops_call(pat, k, x, pk, a2) for k in (1, 2, 3)]
+    torch.cuda.synchronize()
+    for got, prev in zip(outs, [x] + outs[:-1]):
+        want = micro.micro_ops_plain(pat, 1, prev, pk, a2)
+        assert bool(torch.isfinite(got).all()) and _rel(got, want) <= 1e-5
+
+
+def test_micro_smooth_walk_stops_at_every_angle(cuda):
+    """One warp a row: rows whose up half is noisy below angle p_r and flat
+    from it stop the walk at idx = p_r + 1, p_r = 1 .. 60 (odd and even
+    idx, so both lanes' halves serve as sv[idx]); to the bit, three reps."""
+    xs, pk, a2 = micro.make_inputs(0, cuda)
+    rows = xs[0].reshape(-1, micro.M2).clone()
+    lane = torch.arange(micro.M, device=cuda)
+    p = 1 + torch.arange(rows.shape[0], device=cuda) % 60
+    up = rows[:, micro.M:]
+    rows[:, micro.M:] = torch.where(lane[None, :] < p[:, None], up, 1.0)
+    x = rows.reshape(xs[0].shape)
+    prev = x
+    for k in (1, 2, 3):
+        got = micro.micro_ops_call("smooth", k, x, pk, a2)
+        torch.cuda.synchronize()
+        want = micro.micro_ops_plain("smooth", 1, prev, pk, a2)
+        assert torch.equal(got, want)
+        prev = got
+
+
+@pytest.mark.parametrize("mode,g", micro.PASS_PAIRS + (("chunk", 64), ("chunk2d", 64)),
+                         ids=[f"{m}-{g}" for m, g in micro.PASS_PAIRS + (("chunk", 64),
+                                                                          ("chunk2d", 64))])
+def test_micro_pass_layout_keeps_every_element(cuda, mode, g):
+    """256 blocks of half a row: a field whose every value names its
+    (layer, column, lane) comes back in place, to the bit."""
+    L, C, M2 = micro.L, micro.C, micro.M2
+    x = torch.arange(L * C * M2, dtype=torch.float32, device=cuda).reshape(L, C, M2) * 1e-6
+    assert torch.equal(micro.micro_pass_call(mode, g, x), micro.micro_pass_plain(mode, g, x))
+
+
 def test_micro_wrappers_count_launches(cuda):
     xs, pk, a2 = micro.make_inputs(0, cuda)
     ms.reset_launches()

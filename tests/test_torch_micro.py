@@ -154,3 +154,41 @@ def test_bounds_follow_the_shapes():
     assert by == "operations" and us == pytest.approx(3 * 2 * 8192 * 128 * 128 / 989e12 * 1e6)
     us, by = tool_ops.pass_bound_us("matmul", rate)
     assert by == "operations" and us == pytest.approx(4.006, rel=1e-3)
+
+
+# a cuobjdump -sass listing of two kernels: one whose loop branches back to
+# an address, one (nvdisasm style) to a label
+SASS = """
+        Function : _ZN12_GLOBAL__N_116micro_ops_kernelILi0EEEviPKfS2_S2_PKtS4_S2_Pf
+        /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;   /* 0x0 */
+        /*0010*/                   STS.128 [R0], R4 ;                  /* 0x0 */
+        /*0020*/                   LDS.128 R8, [R0] ;                  /* 0x0 */
+        /*0030*/                   FMUL R8, R8, 1.0001 ;               /* 0x0 */
+        /*0040*/                   STS.128 [R0], R8 ;                  /* 0x0 */
+        /*0050*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;       /* 0x0 */
+        /*0060*/               @P0 BRA 0x20 ;                          /* 0x0 */
+        /*0070*/                   LDS.128 R8, [R0] ;                  /* 0x0 */
+        /*0080*/                   STG.E.128 desc[UR4][R2.64], R8 ;    /* 0x0 */
+        /*0090*/                   EXIT ;                              /* 0x0 */
+        Function : _ZN12_GLOBAL__N_117micro_pass_kernelILi0ELi0EEEviPKfPf
+.L_x_0:
+        /*0000*/                   LDS.64 R2, [R0] ;                   /* 0x0 */
+        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, R4, gdesc[UR4], RZ ;
+        /*0020*/              @!P1 BRA `(.L_x_0) ;                     /* 0x0 */
+"""
+
+
+def test_sass_loops_count_shared_traffic():
+    from sos_rt_tpu_torch.tools import sass
+
+    funcs = sass.functions(SASS)
+    assert len(funcs) == 2
+    ops = [n for n in funcs if "micro_ops" in n][0]
+    rows = sass.loops(*funcs[ops])
+    assert rows == [{"start": 0x20, "end": 0x60, "lds": 1, "sts": 1, "ldg": 0, "stg": 0,
+                     "bar": 1, "mma": 0}]
+    assert sass.rep_loop(rows) == rows[0]
+    pas = [n for n in funcs if "micro_pass" in n][0]
+    rows = sass.loops(*funcs[pas])
+    assert [(r["lds"], r["sts"], r["mma"]) for r in rows] == [(1, 0, 1)]
+    assert sass.rep_loop(rows) is None

@@ -13,6 +13,7 @@ sos_rt_tpu.  (The comparisons with the JAX mega engine in float32 and
 with its order-count predictor are in tests/test_torch_jax_mega.py.)
 """
 import dataclasses
+import inspect
 import os
 import re
 import subprocess
@@ -206,6 +207,21 @@ def test_routes_outside_the_slice_raise(tables56):
         solve_batch(*port, engine="other", device="cpu")
     with pytest.raises(ValueError):
         solve_batch_mega(*port, outputs="rows", device="cpu")
+
+
+def test_solve_batch_parameters_bind_as_jax():
+    """The port's solve_batch takes JAX's parameters in JAX's places up to
+    ``sort`` (``shard_tables`` right after ``mesh``), then ``device``: a
+    positional call binds the same names on both."""
+    jax_params = list(inspect.signature(j_solve_batch).parameters)
+    port_params = list(inspect.signature(solve_batch).parameters)
+    assert jax_params[-1] == "sort"
+    assert port_params == jax_params + ["device"]
+    args = ("s", "t", "g", "o", None, False, 2)
+    for fn in (j_solve_batch, solve_batch):
+        bound = inspect.signature(fn).bind(*args).arguments
+        assert bound["mesh"] is None and bound["shard_tables"] is False
+        assert bound["buckets"] == 2
 
 
 def test_options_carry_across():
