@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (sos_rt_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py        # about 5 min on an H100, the build included
+    python3 chip_smoke.py        # about 4 min on an H100, the build included
 
 Phases, one JSON line each on stdout:
 
@@ -202,9 +202,37 @@ Phases, one JSON line each on stdout:
                  ``python -m sos_rt_tpu_torch.tools.ablate_kernel`` (16
                  orders, B=4096) through its main(): where mega_call's time
                  goes.
+22. ``ablate_stream`` the streamed passes' ablated builds
+                 (csrc/megastream_ablate.cu): each flag of passA (nosrc,
+                 noloops) and of passB (nopoly, noloops, nofin, nosmooth)
+                 against passA_plain / passB_plain with the same flag on
+                 the kernels phase's block (float64 within 1e-12, float32
+                 bf16x3 within F32_KERNEL_TOL) and on one canonical
+                 128-column block, two orders of the plain chain each
+                 (passB to the bit, nosrc's jₙ↑ to the bit); the empty
+                 mask of each ablated build equal to sos_passA / the
+                 passB stages to the bit; nofin equal to nosmooth; each
+                 variant timed at the canonical block; the whole streamed
+                 loop on the card against the CPU for the tool's variants
+                 and each loop flag (float64: equal order counts, 1e-12;
+                 float32 the loop flags, MEGA_BATCH_LIMITS), with the
+                 launches each variant makes (nopassA,nopassB none); then
+                 ``python -m sos_rt_tpu_torch.tools.ablate_stream`` (12
+                 orders, B=128) through its main(), with its launch counts.
+23. ``trace``    tools/profile.py on the card: the reference engine's
+                 canonical column (its --canonical), the fused_canonical
+                 batch, the canonical batch (mega, streamed), the 64×128
+                 sweep batch (mega, resident) and the sweep command once:
+                 device ms by scope (each present on the reference and
+                 fused engines) and by kernel, the window's host ms and
+                 the device's busy share; beside them the route's
+                 layer_reaches_ground on one 4096-column chunk.
 
 Then the ``{"kernels": [...]}`` line (eight kernels, and sos_mega_i1in
-after mega_call; max_abs_err over both
+after mega_call; passA and passB with their ablated build under
+``ablated``: its source, its launches in ``ablate_stream``'s tool run, its
+largest difference from the plain versions at the canonical block and each
+variant's ms there; max_abs_err over both
 paths' blocks; share_of_bound = bound_ms / ms for the sweep and micro
 kernels; for micro_ops and micro_pass the sums over their patterns' K1
 calls and their pairs' calls, with pass_bound_ms, the sum of the per-pass
@@ -245,6 +273,7 @@ SOURCE = "sos_rt_tpu_torch/csrc/megastream.cu"
 MEGA_SOURCE = "sos_rt_tpu_torch/csrc/megakernel.cu"
 FUSED_SOURCE = "sos_rt_tpu_torch/csrc/fused_sweeps.cu"
 MICRO_SOURCE = "sos_rt_tpu_torch/csrc/micro.cu"
+STREAM_ABLATE_SOURCE = "sos_rt_tpu_torch/csrc/megastream_ablate.cu"
 # the least shared loads and stores (LDS, STS) that the rep (pass) loop of
 # each micro kernel issues in its SASS, from micro.cu: a row pattern one
 # float4 of each of a warp's 8 rows, read and written; smooth each of a
@@ -263,6 +292,11 @@ MICRO_PRODUCT_TOL = 1e-5
 # the attribution run (tools/ablate_kernel.py's defaults) and the batch its
 # variants are held against mega_plain on
 ABLATE_ORDERS, ABLATE_BATCH, ABLATE_CHECK_BATCH = 16, 4096, 1024
+# the streamed attribution run (tools/ablate_stream.py's defaults), the
+# order count of the whole-loop checks, and the loop's own flags they run
+STREAM_ABLATE_ORDERS, STREAM_ABLATE_BATCH, STREAM_LOOP_ORDERS = 12, 128, 6
+STREAM_LOOP_FLAGS = ("sccond", "nopassA", "nopassB", "notiles", "noratio",
+                     "noconv,sccond")
 # variants whose float32 fields leave the smoothing threshold's resolution:
 # without the source product the field grows to ~7e3, where one float32 ulp
 # (~5e-4) exceeds the walk's 1e-4 threshold, and from a start of 1 on every
@@ -415,12 +449,14 @@ def block_inputs(scenes, tables, grid, opts, device, cols_per_block=None):
 def launch_counts() -> dict:
     """Launches of every kernel wrapper, and of passI / passA / mega_call
     those whose products ran on the tensor cores (``passI_tc``,
-    ``passA_tc``, ``mega_call_tc``), and of mega_call those of
-    sos_mega_i1in (``mega_call_i1in``)."""
+    ``passA_tc``, ``mega_call_tc``), of mega_call those of sos_mega_i1in
+    (``mega_call_i1in``), and of passA / passB those of their ablated
+    builds (``passA_ablate``, ``passB_ablate``)."""
     from sos_rt_tpu_torch.ops import megastream as ms
 
     counts = {k.__name__: k.launches for k in ms.ALL_KERNELS}
     counts.update({f"{k.__name__}_tc": k.tc_launches for k in ms.TC_KERNELS})
+    counts.update({f"{k.__name__}_ablate": k.ablate_launches for k in ms.ABLATE_KERNELS})
     counts["mega_call_tc"] = ms.mega_call.tc_launches
     counts["mega_call_i1in"] = ms.mega_call.i1in_launches
     return counts
@@ -769,7 +805,7 @@ def phase_card():
              f"(SIMT {MEGA_PTXAS_SIMT}, tensor cores {MEGA_PTXAS_TC})")
     ptxas = {}
     for name in cuda_build.SOURCES:
-        if name in cuda_build.ABLATE_SOURCES:
+        if name in cuda_build.ABLATE_SOURCES + ("megastream_ablate",):
             continue
         log = cuda_build._lib_path(name) + ".log"
         with open(log) if os.path.exists(log) else open(os.devnull) as fh:
@@ -785,6 +821,11 @@ def phase_card():
               "spill_store_bytes": span([sp for _, _, sp, _ in e])}
         for key, e in (("tensor_cores", [x for x in abl if "kernelIfLi1E" in x[0]]),
                        ("simt", [x for x in abl if "kernelIfLi1E" not in x[0]]))}
+    # the streamed passes' ablated build: one summary line for its kernels
+    sabl = ptxas_entries(cuda_build._lib_path("megastream_ablate") + ".log")
+    ptxas["megastream_ablate"] = {"kernels": len(sabl),
+                                  "registers": span([r for _, r, _, _ in sabl]),
+                                  "spill_store_bytes": span([sp for _, _, sp, _ in sabl])}
     emit({"phase": "card", "nvidia_smi": nvidia_smi(),
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2529,6 +2570,255 @@ def phase_ablate(device):
         fail("ablate: " + "; ".join(bad))
 
 
+def passes_vs_plain(pack, cpar, fdn, fup, ops, tol: float, what: str, orders: int):
+    """The ablated builds of passA and passB (csrc/megastream_ablate.cu)
+    against their plain versions with the same flag, on the fields of
+    ``orders`` orders of the plain chain from (fdn, fup): passA within
+    ``tol`` of scale (its product sums in another order; nosrc's jₙ↑ to
+    the bit), passB to the bit (same_bits: the same separately rounded
+    operations); the empty mask of each ablated build equal to the solve's
+    build to the bit; 'nofin' equal to 'nosmooth' (same_bits).  Returns
+    ({variant: max relative error}, {variant: max absolute error})."""
+    import torch
+
+    from sos_rt_tpu_torch.ops import megastream as ms
+
+    rel, absd = {}, {}
+
+    def held(key, got, want, bits):
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            fail(f"ablate_stream {what} {key}: non-finite values")
+        r = max(rel_err(g, w) for g, w in zip(got, want))
+        rel[key] = max(rel.get(key, 0.0), r)
+        absd[key] = max(absd.get(key, 0.0),
+                        max(float((g - w).abs().max()) for g, w in zip(got, want)))
+        if bits and not all(same_bits(g, w) for g, w in zip(got, want)):
+            fail(f"ablate_stream {what} {key}: not equal to the bit (rel err {r:.3e})")
+        if not r <= tol:
+            fail(f"ablate_stream {what} {key}: rel err {r:.3e} > {tol}")
+
+    for _ in range(orders):
+        if not all(same_bits(a, b) for a, b in zip(
+                ms.passA(pack, fdn, fup, ops),
+                ms.passA(pack, fdn, fup, ops, ablate_build=True))):
+            fail(f"ablate_stream {what}: sos_passA_ablate's empty mask differs from sos_passA")
+        for f in ms.PASS_A_FLAGS:
+            got = ms.passA(pack, fdn, fup, ops, ab={f})
+            want = ms.passA_plain(pack, fdn, fup, ops, {f})
+            held(f"passA {f}", got, want, False)
+            if f == "nosrc" and not same_bits(got[1], want[1]):
+                fail(f"ablate_stream {what}: passA nosrc's jn_up is not I_up + 1 to the bit")
+        sdn, jn = ms.passA_plain(pack, fdn, fup, ops)
+        if not all(same_bits(a, b) for a, b in zip(
+                ms.passB(pack, sdn, jn, cpar, ops),
+                ms.passB(pack, sdn, jn, cpar, ops, ablate_build=True))):
+            fail(f"ablate_stream {what}: sos_passB_ablate's empty mask differs from "
+                 "the passB stages")
+        outs = {}
+        for f in ms.PASS_B_FLAGS:
+            outs[f] = ms.passB(pack, sdn, jn, cpar, ops, ab={f})
+            held(f"passB {f}", outs[f], ms.passB_plain(pack, sdn, jn, cpar, ops, {f}), True)
+        if not all(same_bits(a, b) for a, b in zip(outs["nofin"], outs["nosmooth"])):
+            fail(f"ablate_stream {what}: passB nofin and nosmooth differ")
+        fdn, fup = ms.passB_plain(pack, sdn, jn, cpar, ops)
+    return rel, absd
+
+
+def stream_loop_launches(launches: dict, ab: str, orders: int, blocks: int):
+    """Fail unless a streamed loop with the flags ``ab`` and a fixed order
+    count launched what its flags say: passI once a block; passA and passB
+    ``orders`` times a block each, from the ablated build where a flag of
+    theirs is set, not at all under 'nopassA' / 'nopassB'."""
+    from sos_rt_tpu_torch.ops import megastream as ms
+
+    flags = set(ab.split(","))
+    want = {"passI": blocks}
+    for name, own in (("passA", ms.PASS_A_FLAGS), ("passB", ms.PASS_B_FLAGS)):
+        n = 0 if "no" + name in flags else orders * blocks
+        ablated = bool(flags & set(own))
+        want[name], want[name + "_ablate"] = (0, n) if ablated else (n, 0)
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"ablate_stream {ab}: launches {got}, expected {want}")
+
+
+def phase_ablate_stream(device):
+    """The streamed passes' ablated builds and the streamed attribution
+    tool.  Returns {'passA': entry, 'passB': entry}: the ablated build of
+    each for the kernels line."""
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.config import GridSpec, SolverOptions
+    from sos_rt_tpu_torch.fused import solve_batch_mega
+    from sos_rt_tpu_torch.ops import megastream as ms
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import PhaseTables
+    from sos_rt_tpu_torch.tools import ablate_stream as tool
+
+    hg = get_preset("hg")
+    # 1. each variant against its plain version on the kernels phase's block
+    grid = GridSpec(56, 64)
+    scenes = random_scenes(hg, 8, device, np.random.default_rng(SEED))
+    small = {}
+    for dtype, mm, tol in (("float64", "highest", 1e-12),
+                           ("float32", "bf16x3", F32_KERNEL_TOL)):
+        opts = SolverOptions(surface="lambertian", dtype=dtype, mm=mm)
+        (pack, cpar, tiles), ops = block_inputs(
+            scenes, test_tables(grid, device, getattr(torch, dtype)), grid, opts, device)
+        fdn, fup = ms.passI_plain(pack, tiles, cpar, ops)
+        small[f"{dtype} {mm}"] = passes_vs_plain(pack, cpar, fdn, fup, ops, tol,
+                                                 f"{dtype} {mm}", 2)[0]
+
+    # 2. on one canonical 128-column block, 2 orders, float32 bf16x3; each
+    # variant timed there beside the solve's build
+    opts = SolverOptions(surface="lambertian", dtype="float32", mm="bf16x3")
+    ctables = PhaseTables.from_models(hg.grid, 0.5, atm=hg.atm, aer=hg.aer,
+                                      dtype=torch.float32, device=device)
+    (pack, cpar, tiles), ops = block_inputs(
+        random_scenes(hg, 128, device, np.random.default_rng(SEED)), ctables, hg.grid,
+        opts, device, cols_per_block=128)
+    fdn, fup = ms.passI_plain(pack, tiles, cpar, ops)
+    big_rel, big_abs = passes_vs_plain(pack, cpar, fdn, fup, ops, F32_KERNEL_TOL,
+                                       "canonical block", 2)
+    sdn, jn = ms.passA_plain(pack, fdn, fup, ops)
+    block_ms = {"passA": timed(lambda: ms.passA(pack, fdn, fup, ops), 5),
+                "passB": timed(lambda: ms.passB(pack, sdn, jn, cpar, ops), 5)}
+    for f in ms.PASS_A_FLAGS:
+        block_ms[f"passA {f}"] = timed(lambda: ms.passA(pack, fdn, fup, ops, ab={f}), 5)
+    for f in ms.PASS_B_FLAGS:
+        block_ms[f"passB {f}"] = timed(lambda: ms.passB(pack, sdn, jn, cpar, ops, ab={f}), 5)
+
+    # 3. the whole streamed loop, card against CPU (the plain versions): the
+    # tool's variants and each loop flag, with the launches each variant makes
+    loops = {}
+    for dtype in ("float64", "float32"):
+        opts = SolverOptions(surface="lambertian", dtype=dtype, max_orders=STREAM_LOOP_ORDERS)
+        per = {}
+        names = tool.variants() + STREAM_LOOP_FLAGS
+        for ab in (names if dtype == "float64" else ("noconv",) + STREAM_LOOP_FLAGS):
+            sols = []
+            for dev in (device, torch.device("cpu")):
+                sc = random_scenes(hg, 8, dev, np.random.default_rng(SEED))
+                tb = test_tables(grid, dev, getattr(torch, dtype))
+                _, sol, launches = timed_solve(lambda: solve_batch_mega(
+                    sc, tb, grid, opts, outputs="summary", stream=True, sort=False,
+                    device=dev, ablate=ab))
+                sols.append(sol)
+                if dev == device and "noconv" in ab:
+                    stream_loop_launches(launches, ab, STREAM_LOOP_ORDERS - 1, 1)
+            gpu, cpu = (torch.cat([x.i_toa, x.i_surface], 1).cpu() for x in sols)
+            if dtype == "float64":
+                if not torch.equal(sols[0].n_orders.cpu(), sols[1].n_orders):
+                    fail(f"ablate_stream loop {ab} float64: order counts differ")
+                per[ab] = rel_err(gpu, cpu)
+                if not per[ab] <= 1e-12:
+                    fail(f"ablate_stream loop {ab} float64: rel err {per[ab]:.3e}")
+            else:
+                per[ab] = loops_within_limits(sols[0].n_orders.cpu(), sols[1].n_orders,
+                                              [gpu], [cpu], f"ablate_stream loop {ab}")[0]
+        loops[dtype] = per
+
+    # 4. the tool at its shapes: every count 0 just before, read just after
+    ms.reset_launches()
+    res, lines = run_tool(tool.main, [str(STREAM_ABLATE_ORDERS), str(STREAM_ABLATE_BATCH)])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if not (launches["passA_ablate"] and launches["passB_ablate"] and launches["passA"]
+            and launches["passB"]):
+        fail(f"ablate_stream: the tool's launches {launches}")
+    if any(v is None for v in res["kernels_ms"].values()):
+        fail(f"ablate_stream: no device time for a variant: {res['kernels_ms']}")
+    # each variant's trace holds every product launch: passI's and, where
+    # passA keeps its product, passA's
+    for ab, by_kernel in res["by_kernel"].items():
+        products = sum(k["calls"] for name, k in by_kernel.items() if "quad_mma" in name)
+        want = 1 + (0 if {"nosrc", "nopassA"} & set(ab.split(",")) else STREAM_ABLATE_ORDERS - 1)
+        if products != want:
+            fail(f"ablate_stream {ab}: the profiler saw {products} product launches, not "
+                 f"{want} (passI and each passA with its product)")
+    emit({"phase": "ablate_stream", "small_block_rel_err": small,
+          "canonical_block_rel_err": big_rel, "canonical_block_ms": block_ms,
+          "loops": loops, "loop_orders": STREAM_LOOP_ORDERS, "limits": MEGA_BATCH_LIMITS,
+          "empty_mask_equals_solve": True, "nofin_equals_nosmooth": True,
+          "tool_launches": launches, "tool_lines": lines, "attribution": res})
+    entry = lambda name: {"source": STREAM_ABLATE_SOURCE,
+                          "launches": launches[f"{name}_ablate"],
+                          "max_abs_err": max(v for k, v in big_abs.items()
+                                             if k.startswith(name)),
+                          "ms": {k: v for k, v in block_ms.items() if k.startswith(name)}}
+    return {"passA": entry("passA"), "passB": entry("passB")}
+
+
+def phase_trace(device):
+    """tools/profile.py on the card: where the time of each path goes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch import cli, fused
+    from sos_rt_tpu_torch.config import SolverOptions
+    from sos_rt_tpu_torch.parallel import solve_batch
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import PhaseTables
+    from sos_rt_tpu_torch.sweep import build_sweep_batch
+    from sos_rt_tpu_torch.tools import profile
+
+    out = os.path.join(HERE, "build", "sos_rt_tpu_torch", "trace")
+    keep = lambda t: {**t, "kernels": dict(list(t["kernels"].items())[:12])}
+    paths = {}
+    # the reference engine's canonical single column, as the JAX tool runs it
+    t, _ = run_tool(profile.main, ["--canonical", "--out", out])
+    paths["reference_canonical"] = keep(t)
+    hg = get_preset("hg")
+    opts = SolverOptions(surface="lambertian", dtype="float32", mm="bf16x3")
+    t32 = PhaseTables.from_models(hg.grid, 0.5, atm=hg.atm, aer=hg.aer,
+                                  dtype=torch.float32, device=device)
+    # the fused_canonical batch, through engine='mega'
+    fscenes = dataclasses.replace(
+        random_scenes(hg, 64, device, np.random.default_rng(SEED)),
+        tau_star_atm=torch.full((64,), 0.044, dtype=torch.float64, device=device))
+    paths["fused_canonical"] = keep(profile.trace(lambda: solve_batch(
+        fscenes, t32, hg.grid, opts, engine="mega", outputs="summary", device=device),
+        out, "fused_canonical", device))
+    # the canonical batch (mega, streamed)
+    cscenes = random_scenes(hg, 256, device, np.random.default_rng(SEED))
+    paths["canonical"] = keep(profile.trace(lambda: solve_batch(
+        cscenes, t32, hg.grid, opts, engine="mega", outputs="summary",
+        cols_per_block=128, device=device), out, "canonical", device))
+    # the 64x128 sweep batch (mega, resident)
+    preset, sscenes, stables = fwc_batch(device)
+    paths["fwc_sweep"] = keep(profile.trace(lambda: solve_batch(
+        sscenes, stables[torch.float32], preset.grid, preset.opts, engine="mega",
+        outputs="summary", sort="predict", device=device), out, "fwc_sweep", device))
+    for name, scopes in (("reference_canonical", profile.SCOPES),
+                         ("fused_canonical", profile.SCOPES[1:])):
+        missing = [s for s in scopes
+                   if paths[name]["scopes"].get(s, {}).get("device_ms") is None]
+        if missing:
+            fail(f"trace {name}: no device time for the scopes {missing}")
+    for name, kern in (("canonical", "tc::quad_mma"), ("fwc_sweep", "mega_kernel")):
+        if not any(kern in k for k in paths[name]["kernels"]):
+            fail(f"trace {name}: no {kern} kernel in {list(paths[name]['kernels'])}")
+    # the sweep command once (its phase ran it before), and beside it the
+    # route's layer_reaches_ground on one chunk's scenes (one sync a solve)
+    sweep_dir = os.path.join(out, "sweep_cli")
+    argv = ["sweep", "--preset", "fwc_sweep", "--batch", "16384", "--chunk", "4096",
+            "-o", sweep_dir]
+    import shutil
+
+    shutil.rmtree(sweep_dir, ignore_errors=True)
+    paths["sweep_cli"] = keep(profile.trace(lambda: run_tool(cli.main, argv), out,
+                                            "sweep_cli", device, warm=False))
+    chunk, _ = build_sweep_batch(preset, 4096, seed=0, device=device)
+    ground_ms = min(1e3 * timed_solve(lambda: fused.layer_reaches_ground(
+        chunk, preset.grid))[0] for _ in range(5))
+    emit({"phase": "trace", "nvidia_smi": nvidia_smi(), "paths": paths,
+          "layer_reaches_ground_ms": ground_ms})
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     import torch
@@ -2571,6 +2861,11 @@ def main(argv=None) -> int:
         k["max_abs_err"] = max(k["max_abs_err"], fused_abs[k["name"]])
     micro_entries = [phase_micro_ops(device), phase_micro_pass(device)]
     phase_ablate(device)
+    ablated = phase_ablate_stream(device)
+    for k in kernels:        # passA and passB name their ablated build
+        if k["name"] in ablated:
+            k["ablated"] = ablated[k["name"]]
+    phase_trace(device)
     emit({"kernels": kernels + [mega, mega_i1in] + sweeps + micro_entries})
     print(nvidia_smi(), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

@@ -43,53 +43,10 @@
 //   join rows' smoothing in a walk over the layers, one block a column with
 //   threads over angles, so every load of a layer row is contiguous
 //   (pass_b_split.cuh).
+// The launches are stream_passes.cuh's, built here for the solve (ablation
+// bits 0); megastream_ablate.cu builds them with stages cut out.
 // Every entry point returns cudaGetLastError(); the caller raises on non-0.
-#include "pass_b_split.cuh"
-#include "quad_mma.cuh"
-#include "sos_tiles.cuh"
-
-namespace {
-
-using namespace sos;
-
-// one BM x BN tile of the quad product per block of 16 x 16 threads
-template <typename T, int MODE, class Loader, class Epi>
-__global__ void __launch_bounds__(TX * TY)
-quad_gemm(Loader ld, Epi epi, const T* __restrict__ w_hi,
-          const T* __restrict__ w_lo, int R, int Mp, int K) {
-  __shared__ GemmSmem<T, MODE> sm;
-  quad_gemm_tile<T, MODE>(ld, epi, w_hi, w_lo, R, Mp, K, blockIdx.y * BM,
-                          blockIdx.x * BN, threadIdx.y * TX + threadIdx.x, true, sm);
-}
-
-// one thread per (column, angle) walks the layers downward
-template <typename T>
-__global__ void down_scan(const T* __restrict__ pack, const T* __restrict__ colc,
-                          T* sdn, int L, int C, int Mp) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= C * Mp) return;
-  down_scan_one<T>(pack, PackMap{L, C, C, 0}, colc, sdn, Mp, idx / Mp, idx % Mp);
-}
-
-dim3 gemm_grid(int R, int Mp) { return dim3((Mp + BN - 1) / BN, (R + BM - 1) / BM); }
-
-// the quad product in the mainloop (dtype, mode) takes: the tensor cores for
-// float32 bf16x3 / bf16x5 (w_tc: the (2, 4Mp, kp) bf16 operator copy), the
-// SIMT product otherwise (w_hi, w_lo)
-template <typename T, int MODE, class Loader, class Epi>
-int quad_product(const Loader& ld, const Epi& epi, const void* w_hi, const void* w_lo,
-                 const void* w_tc, int kp, int R, int Mp, int K, cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value && MODE != MM_HIGHEST) {
-    return tc::launch<MODE>(ld, epi, w_tc, R, Mp, K, kp, st);
-  } else {
-    if ((R + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-    quad_gemm<T, MODE><<<gemm_grid(R, Mp), dim3(TX, TY), 0, st>>>(
-        ld, epi, (const T*)w_hi, (const T*)w_lo, R, Mp, K);
-    return (int)cudaGetLastError();
-  }
-}
-
-}  // namespace
+#include "stream_passes.cuh"
 
 extern "C" {
 
@@ -100,19 +57,10 @@ int sos_passA(int dtype, int mode, const void* pack, const void* fdn,
               const void* fup, const void* colc, const void* ws_hi,
               const void* ws_lo, const void* ws_tc, int kp, void* sdn, void* jnup,
               int L, int C, int Mp, void* stream) {
-  const int R = L * C;
   cudaStream_t st = (cudaStream_t)stream;
   return dispatch(dtype, mode, [&](auto tv, auto mv) {
-    using T = decltype(tv);
-    constexpr int MODE = decltype(mv)::value;
-    LoadFields<T> ld{(const T*)fdn, (const T*)fup, Mp};
-    EpiSource<T> epi{(const T*)pack, PackMap{L, C, C, 0}, (T*)sdn, (T*)jnup, Mp};
-    const int err = quad_product<T, MODE>(ld, epi, ws_hi, ws_lo, ws_tc, kp, R, Mp, 2 * Mp, st);
-    if (err != 0) return err;
-    const int n = C * Mp, nt = 256;
-    down_scan<T><<<(n + nt - 1) / nt, nt, 0, st>>>((const T*)pack, (const T*)colc,
-                                                   (T*)sdn, L, C, Mp);
-    return (int)cudaGetLastError();
+    return launch_pass_a<decltype(tv), decltype(mv)::value, 0>(
+        pack, fdn, fup, colc, ws_hi, ws_lo, ws_tc, kp, sdn, jnup, L, C, Mp, st);
   });
 }
 
@@ -142,24 +90,13 @@ int sos_passB_band(int dtype, int mode, const void* pack, const void* sdn,
                    const void* colc, const void* tap_col, const void* tap_hi,
                    const void* tap_lo, const void* pvt, void* fdn, int L, int C, int Mp,
                    int mr, int slot, void* stream) {
-  if (slot > Mp || slot > 32 || mr < 4 || mr > Mp) return (int)cudaErrorInvalidValue;
-  const int R = L * C;
   cudaStream_t st = (cudaStream_t)stream;
   return dispatch(dtype, mode, [&](auto tv, auto mv) {
     using T = decltype(tv);
-    constexpr int MODE = decltype(mv)::value;
     PassBArgs<T> a{(const T*)pack, PackMap{L, C, C, 0}, (const T*)sdn, nullptr, nullptr,
                    (const T*)colc, (const int*)tap_col, (const T*)tap_hi, (const T*)tap_lo,
                    (const T*)pvt, nullptr, nullptr, (T*)fdn, nullptr, Mp, mr, slot};
-    const size_t smem = sizeof(T) * pb::band_smem_elems(Mp);
-    auto kern = pb::pass_b_band<T, MODE>;
-    if (smem > 48 * 1024) {
-      const cudaError_t e =
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    kern<<<(R + pb::ROW_WARPS - 1) / pb::ROW_WARPS, 32 * pb::ROW_WARPS, smem, st>>>(a, R);
-    return (int)cudaGetLastError();
+    return launch_pass_b_band<T, decltype(mv)::value, 0>(a, L * C, st);
   });
 }
 
@@ -167,36 +104,22 @@ int sos_passB_walk(int dtype, int mode, const void* pack, const void* jnup,
                    const void* cpar, const void* colc, const void* bct_hi,
                    const void* bct_lo, const void* fdn, void* fup, int L, int C, int Mp,
                    int mr, void* stream) {
-  const int nt = ((Mp + 31) / 32) * 32;
-  if (nt > 1024 || mr < 4 || mr > Mp) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   return dispatch(dtype, mode, [&](auto tv, auto mv) {
     using T = decltype(tv);
-    constexpr int MODE = decltype(mv)::value;
     PassBArgs<T> a{(const T*)pack, PackMap{L, C, C, 0}, nullptr, (const T*)jnup,
                    (const T*)cpar, (const T*)colc, nullptr, nullptr, nullptr, nullptr,
                    (const T*)bct_hi, (const T*)bct_lo, (T*)fdn, (T*)fup, Mp, mr, 0};
-    const size_t smem = sizeof(T) * pb::up_smem_elems<T, MODE>(Mp);
-    pb::pass_b_up<T, MODE><<<C, nt, smem, st>>>(a);
-    return (int)cudaGetLastError();
+    return launch_pass_b_up<T, decltype(mv)::value, 0>(a, C, st);
   });
 }
 
 int sos_passB_smooth(int dtype, void* fup, const void* colc, int L, int C, int Mp, int mr,
                      void* stream) {
-  if (mr < 4 || mr > Mp) return (int)cudaErrorInvalidValue;
-  const int R = L * C;
-  const int blocks = (R + pb::ROW_WARPS - 1) / pb::ROW_WARPS;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    pb::pass_b_smooth<float><<<blocks, 32 * pb::ROW_WARPS, 0, st>>>(
-        (float*)fup, (const float*)colc, R, Mp, mr);
-  else if (dtype == 1)
-    pb::pass_b_smooth<double><<<blocks, 32 * pb::ROW_WARPS, 0, st>>>(
-        (double*)fup, (const double*)colc, R, Mp, mr);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 0) return launch_pass_b_smooth<float>(fup, colc, L * C, Mp, mr, st);
+  if (dtype == 1) return launch_pass_b_smooth<double>(fup, colc, L * C, Mp, mr, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dynamic shared memory (bytes) of the tensor-core mainloop's CTA

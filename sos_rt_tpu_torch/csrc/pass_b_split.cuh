@@ -46,7 +46,9 @@ constexpr unsigned FULL = 0xffffffffu;
 __host__ __device__ constexpr int band_smem_elems(int Mp) { return ROW_WARPS * (Mp + 32); }
 
 // Stage 1: fdn of local field row r = t*C + c for every row, warp-uniform.
-template <typename T, int MODE>
+// AB (ablation bits of sos_tiles.cuh; 0 for the solve): AB_NOPOLY writes
+// -sdn / mu with the mu=0- and pad rows zeroed, no band fix.
+template <typename T, int MODE, int AB = 0>
 __global__ void __launch_bounds__(32 * ROW_WARPS)
 pass_b_band(PassBArgs<T> a, int R) {
   extern __shared__ __align__(16) unsigned char band_smem[];
@@ -58,6 +60,11 @@ pass_b_band(PassBArgs<T> a, int R) {
   T* spoly = sv + Mp;
   const T* ivdn = a.colc + RC_IVDN * Mp;
   const T* sdn = a.sdn + (size_t)r * Mp;
+  if constexpr ((AB & AB_NOPOLY) != 0) {
+    T* out = a.fdn + (size_t)r * Mp;
+    for (int n = lane; n < Mp; n += 32) out[n] = n >= mr - 1 ? T(0) : -sdn[n] * ivdn[n];
+    return;
+  }
   for (int n = lane; n < Mp; n += 32) {
     T fv = -sdn[n] * ivdn[n];
     if (n >= mr - 1) fv = T(0);                // mu=0- row and pad rows
@@ -91,8 +98,11 @@ template <typename T, int MODE>
 __host__ __device__ constexpr int up_smem_elems(int Mp) { return (1 + Parts<MODE>::NX) * Mp; }
 
 // Stage 2: column blockIdx.x, thread n = angle (threads n >= Mp only keep
-// the barriers).
-template <typename T, int MODE>
+// the barriers).  AB (0 for the solve): AB_NOLOOPS drops the up carry (r =
+// src at every layer), AB_NOFIN the join corrections and the join rows'
+// smoothing, AB_NOSMOOTH the join rows' smoothing (d = 0 there); the
+// caller then launches no pass_b_smooth.
+template <typename T, int MODE, int AB = 0>
 __global__ void __launch_bounds__(1024) pass_b_up(PassBArgs<T> a) {
   extern __shared__ __align__(16) unsigned char up_smem[];
   __shared__ int sred[32];
@@ -161,20 +171,26 @@ __global__ void __launch_bounds__(1024) pass_b_up(PassBArgs<T> a) {
       const T jiv = ivup * jn[u];
       const T src = n == 0 ? jn[u] : cup[u] * jiv;
       const T gsv = gs[u] * jiv;
-      rcar = attu * rcar + src;
+      if constexpr ((AB & AB_NOLOOPS) != 0) rcar = src;
+      else rcar = attu * rcar + src;
       T f = rcar - gsv;
-      q1 = q1 * attu;
-      q2 = q2 * attu;
-      f = f + corr * (q1 + q2);
-      if (join[u] != 0) {                    // a join row of the block's column
-        __syncthreads();                     // the last readers of sv are done
-        if (act) sv[n] = f;
-        __syncthreads();
-        const T sm = smooth_up_walk<T>(sv, colc, RC_MUUP * Mp, mr, n, muup, f,
-                                       GroupMin{sred, 0, nw});
-        const T d = sm - f;
-        if (join[u] & 1) q1 = d;
-        if (join[u] & 2) q2 = d;
+      if constexpr ((AB & AB_NOFIN) == 0) {
+        q1 = q1 * attu;
+        q2 = q2 * attu;
+        f = f + corr * (q1 + q2);
+        if (join[u] != 0) {                  // a join row of the block's column
+          T sm = f;
+          if constexpr ((AB & AB_NOSMOOTH) == 0) {
+            __syncthreads();                 // the last readers of sv are done
+            if (act) sv[n] = f;
+            __syncthreads();
+            sm = smooth_up_walk<T>(sv, colc, RC_MUUP * Mp, mr, n, muup, f,
+                                   GroupMin{sred, 0, nw});
+          }
+          const T d = sm - f;
+          if (join[u] & 1) q1 = d;
+          if (join[u] & 2) q2 = d;
+        }
       }
       if (act) a.fup[at(t)] = f;
     }

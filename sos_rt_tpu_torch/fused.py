@@ -28,6 +28,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from sos_rt_tpu_torch.config import (SCENE_FIELDS, GridSpec, Scene, SolverOptions,
                                      full_precision_matmul, resolve_device,
@@ -407,11 +408,14 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     (parallel.mesh.mega_small_ok).  ``outputs``: 'full' → Solution,
     'summary' → SweepSummary.  ``device`` defaults to CUDA.
 
-    ``ablate`` (megakernel.ABLATE_FLAGS, comma-separated; results are
-    wrong) cuts stages out of the resident kernel for timing attribution
-    (tools/ablate_kernel.py); it needs the resident execution
-    (``stream=False``, or ``None`` where that resolves to it) and raises
-    ``ValueError`` streamed.
+    ``ablate`` (comma-separated flags; results are wrong) cuts stages out
+    for timing attribution: on the resident execution those of
+    megakernel.ABLATE_FLAGS (tools/ablate_kernel.py), on the streamed one
+    those of megastream.STREAM_ABLATE_FLAGS (tools/ablate_stream.py); a flag
+    the execution does not take raises ``ValueError`` (so do the resident
+    kernel's 'noi1' and 'nobc' streamed).  A batch that goes to the fused
+    engine raises ``ValueError`` with flags: that engine takes none (the
+    JAX package drops them there without a word).
     """
     if outputs not in ("full", "summary"):
         raise ValueError(f"unknown outputs mode {outputs!r}")
@@ -419,12 +423,15 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
         raise ValueError(f"unknown i1 mode {i1!r}; 'kernel' or 'host'")
     device = resolve_device(device)
     stencils = stencils_for(grid)
-    mk.ablate_flags(ablate)
+    if resolve_stream(stream, grid, torch_dtype(opts.dtype)):
+        ms.stream_ablate_flags(ablate)
+    else:
+        mk.ablate_flags(ablate)
     to_fused = (not mk.mega_supported(grid, stencils, allow_small=allow_small)
                 or layer_reaches_ground(scenes, grid))
-    if ablate and (resolve_stream(stream, grid, torch_dtype(opts.dtype)) or to_fused):
-        raise ValueError("ablate flags act on the resident kernel only "
-                         "(stream=False); the streamed passes take none")
+    if ablate and to_fused:
+        raise ValueError("ablate flags act on the mega kernels; this batch goes to "
+                         "the fused engine, which takes none")
     if to_fused:
         sol = solve_batch_fused(scenes, tables, grid, opts, device=device)
         return to_summary(sol) if outputs == "summary" else sol
@@ -455,7 +462,7 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     if stream:
         res = ms.stream_order_loop(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
                                    cols_per_block=sb.cols_per_block,
-                                   outputs=outputs, **planes)
+                                   outputs=outputs, ablate=ablate, **planes)
     else:
         res = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
                            full=outputs == "full",
@@ -605,13 +612,18 @@ class FusedBatch:
 
     def order_step(self, dn_prev, up_prev):
         """One scattering order: (I↓, I↑) of order n from those of n−1.
-        The halves of Jₙ go to the kernels as views, with their strides."""
+        The halves of Jₙ go to the kernels as views, with their strides.
+        The stages run in the JAX engine's named scopes (record_function
+        ranges ``sos.source_jn``, ``sos.down_sweep``, ``sos.up_sweep_bc``)."""
         M = self.M
-        jn = self.source(dn_prev, up_prev)
-        raw = down_sweep(jn[:, :, :M], self.pack, self.mu_down_safe)
-        dn = self.narrow_down_fixes(raw, jn)
-        up = up_sweep_smooth(jn[:, :, M:], self.pack, self.cparams, self.mu_up_row,
-                             self.surface_bc(dn))
+        with record_function("sos.source_jn"):
+            jn = self.source(dn_prev, up_prev)
+        with record_function("sos.down_sweep"):
+            raw = down_sweep(jn[:, :, :M], self.pack, self.mu_down_safe)
+            dn = self.narrow_down_fixes(raw, jn)
+        with record_function("sos.up_sweep_bc"):
+            up = up_sweep_smooth(jn[:, :, M:], self.pack, self.cparams, self.mu_up_row,
+                                 self.surface_bc(dn))
         return dn, up
 
 

@@ -23,7 +23,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sos_rt_tpu_torch")
 # the resident kernel's ablated builds are three sources (one a type and
 # mode), so that their 42 kernels compile in parallel
 ABLATE_SOURCES = ("mega_ablate", "mega_ablate_f32", "mega_ablate_f64")
-SOURCES = ("megastream", "megakernel", "fused_sweeps", "micro") + ABLATE_SOURCES
+# the streamed passes' ablated builds (passA's and passB's flags)
+SOURCES = ("megastream", "megakernel", "fused_sweeps", "micro",
+           "megastream_ablate") + ABLATE_SOURCES
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
@@ -37,6 +39,10 @@ SIGNATURES = {
         "sos_passB_walk": [_I, _I] + [_P] * 8 + [_I] * 4 + [_P],
         "sos_passB_smooth": [_I] + [_P] * 2 + [_I] * 4 + [_P],
         "sos_tc_smem": [],
+    },
+    "megastream_ablate": {
+        "sos_passA_ablate": [_I] * 3 + [_P] * 7 + [_I] + [_P] * 2 + [_I] * 3 + [_P],
+        "sos_passB_ablate": [_I] * 3 + [_P] * 13 + [_I] * 5 + [_P],
     },
     "megakernel": {
         "sos_mega_blocks": [_I] * 4,

@@ -14,6 +14,10 @@ last; Mp = pad_angles(M)), and each scattering order runs two passes:
   and the µ→0⁺ smoothing walk.  Returns the new half-fields.
 
 :func:`passI` evaluates the closed-form first order that starts the loop.
+With ``ab`` flags (:data:`PASS_A_FLAGS`, :data:`PASS_B_FLAGS`) passA and
+passB cut stages out for timing attribution (``tools/ablate_stream.py``;
+results are wrong): on a card they launch the ablated builds of
+``csrc/megastream_ablate.cu`` and count them in ``ablate_launches``.
 
 Each pass is a wrapper: on a CUDA tensor it launches the hand-written
 kernels of ``csrc/megastream.cu`` (or raises) and adds one to its
@@ -39,7 +43,7 @@ import torch
 
 from sos_rt_tpu_torch.ops import cuda_build, fused_sweeps, micro
 from sos_rt_tpu_torch.ops.megakernel import (
-    CP_CONST, CP_GRD, PK_ASTAR, PK_CDN, PK_CHOICE, PK_COEF_AER, PK_COEF_ATM,
+    ABLATE_FLAGS, CP_CONST, CP_GRD, PK_ASTAR, PK_CDN, PK_CHOICE, PK_COEF_AER, PK_COEF_ATM,
     PK_CUP, PK_GS, PK_HDT_DN, PK_HDT_UP, PK_R1, PK_R2, RC_EMU_DN, RC_EMU_UP,
     RC_IVDN, RC_IVUP, RC_MUUP, RC_PKA, RC_PKR, ST_CONV, ST_N, ST_RATIO,
     TC_K_TILE, _dot3, _smooth_up, add_terms, angle_rows, band_fix_tile,
@@ -138,6 +142,49 @@ class StreamOps:
         return _dot3(hi, lo, x, mm=self.mm, dtype=self.dtype)
 
 
+# The streamed execution's ablation flags (the TPU engine's ``ablate``,
+# sos_rt_tpu/ops/megastream.py:313, 403-435; tools/ablate_stream.py): each
+# cuts a stage out for timing attribution, and results are wrong with any
+# flag set.  passA takes PASS_A_FLAGS and passB PASS_B_FLAGS (their ablated
+# builds: each flag alone); the order loop takes the others: 'sccond' stops
+# on column 0's order count alone, 'noconv' counts every order of every
+# column and stops at max_orders, 'nopassA' / 'nopassB' pass the pass's
+# inputs through, 'notiles' accumulates no boundary rows and 'noratio'
+# updates no ratio.
+STREAM_ABLATE_FLAGS = ("sccond", "noconv", "nosrc", "noloops", "nopassA", "nopoly",
+                       "nopassB", "nofin", "nosmooth", "notiles", "noratio")
+PASS_A_FLAGS = ("nosrc", "noloops")
+PASS_B_FLAGS = ("nopoly", "noloops", "nofin", "nosmooth")
+
+
+def stream_ablate_flags(ablate: str) -> frozenset:
+    """The set of flags of a comma-separated ``ablate`` string of the
+    streamed execution; raises ValueError for a flag it does not take."""
+    ab = frozenset(f for f in ablate.split(",") if f) if ablate else frozenset()
+    unknown = sorted(ab - set(STREAM_ABLATE_FLAGS))
+    if unknown:
+        raise ValueError(f"unknown ablate flags {unknown} for the streamed execution; "
+                         f"known: {STREAM_ABLATE_FLAGS}")
+    return ab
+
+
+def _pass_flags(ab, flags, name: str) -> frozenset:
+    ab = frozenset(ab)
+    unknown = sorted(ab - set(flags))
+    if unknown:
+        raise ValueError(f"{name} takes the ablate flags {flags}; got {unknown}")
+    return ab
+
+
+def _pass_mask(ab: frozenset, name: str) -> int:
+    """The AB bits (csrc/sos_tiles.cuh) of a pass's flags: its ablated build
+    has each flag alone and none."""
+    if len(ab) > 1:
+        raise ValueError(f"{name}'s ablated build takes one flag at a time; "
+                         f"got {sorted(ab)}")
+    return sum(1 << ABLATE_FLAGS.index(f) for f in ab)
+
+
 # --------------------------------------------------------------------------
 # Plain versions (angles last: fields (L, C, Mp), pack (PK_W, L, C))
 # --------------------------------------------------------------------------
@@ -161,8 +208,8 @@ def passI_plain(pack, tiles, cpar, ops: StreamOps):
 
 
 def passA_plain(pack, fdn, fup, ops: StreamOps, ab=frozenset()):
-    """Jₙ source product + downward recurrence → (sdn, jnup).  ``ab``: the
-    resident kernel's ablation flags (``megakernel.mega_plain``): 'nosrc'
+    """Jₙ source product + downward recurrence → (sdn, jnup).  ``ab``
+    (ablation flags, as ``megakernel.mega_plain`` takes them): 'nosrc'
     takes jₙ = I + 1 instead of the product, 'noloops' drops the carry."""
     Mp = ops.mp
     if "nosrc" in ab:
@@ -186,8 +233,8 @@ def passA_plain(pack, fdn, fup, ops: StreamOps, ab=frozenset()):
 
 def passB_plain(pack, sdn, jnup, cpar, ops: StreamOps, ab=frozenset()):
     """Surface BC, band fix, upward recurrence, join corrections and
-    smoothing → (fdn, fup).  ``ab``: the resident kernel's ablation flags
-    (``megakernel.mega_plain``): 'nopoly' (no band fix), 'nobc' (the carry
+    smoothing → (fdn, fup).  ``ab`` (ablation flags, as
+    ``megakernel.mega_plain`` takes them): 'nopoly' (no band fix), 'nobc' (the carry
     starts from jₙ↑ of the deepest layer), 'noloops' (no carry), 'nofin'
     (no corrections, no smoothing), 'nosmooth' (no smoothing)."""
     L, C, Mp = sdn.shape
@@ -295,31 +342,48 @@ def passI(pack, tiles, cpar, ops: StreamOps):
     return fdn, fup
 
 
-def passA(pack, fdn, fup, ops: StreamOps):
+def passA(pack, fdn, fup, ops: StreamOps, ab=frozenset(), ablate_build: bool = False):
     """Jₙ source product + downward recurrence → (sdn, jnup).  Replaces
     sos_rt_tpu/ops/megastream.py::_passA_kernel.  Bound by the operations
     of the (4Mp, 2Mp) source product; a tiled product (on the tensor cores
     in float32 'bf16x3' / 'bf16x5', FMAs otherwise) mixes the species in its
-    epilogue, then one thread per (column, angle) walks the layers."""
+    epilogue, then one thread per (column, angle) walks the layers.
+
+    ``ab`` (PASS_A_FLAGS, the kernel's ``ab``: 'nosrc', 'noloops'; results
+    are wrong) launches the ablated build ``sos_passA_ablate``
+    (csrc/megastream_ablate.cu, one flag at a time), counted in
+    ``passA.ablate_launches`` and not in ``launches``; ``ablate_build=True``
+    takes that build with no flag too (it must equal sos_passA to the bit)."""
+    ab = _pass_flags(ab, PASS_A_FLAGS, "passA")
     if not fdn.is_cuda:
-        return passA_plain(pack, fdn, fup, ops)
+        return passA_plain(pack, fdn, fup, ops, ab)
     dt, mm, stream = _kernel_codes(ops, pack, fdn, fup)
     L, C, Mp = fdn.shape
     sdn = torch.empty_like(fdn)
     jnup = torch.empty_like(fdn)
     tc, w_tc, kp = _tc_args(ops, ops.ws_tc)
-    lib = cuda_build.library("megastream")
+    ablated = bool(ab) or ablate_build
+    if ablated:
+        mask = _pass_mask(ab, "passA")
+        launch = cuda_build.library("megastream_ablate").sos_passA_ablate
+        args, name = (mask,), "sos_passA_ablate"
+    else:
+        launch, args, name = cuda_build.library("megastream").sos_passA, (), "sos_passA"
     with torch.cuda.device(pack.device):
-        cuda_build.check(lib.sos_passA(
-            dt, mm, _ptr(pack), _ptr(fdn), _ptr(fup), _ptr(ops.colc),
+        cuda_build.check(launch(
+            *args, dt, mm, _ptr(pack), _ptr(fdn), _ptr(fup), _ptr(ops.colc),
             _ptr(ops.ws[0]), _ptr(ops.ws[1]), w_tc, kp, _ptr(sdn), _ptr(jnup),
-            L, C, Mp, stream), "sos_passA")
-    passA.launches += 1
-    passA.tc_launches += tc
+            L, C, Mp, stream), name)
+    if ablated:
+        passA.ablate_launches += 1
+    else:
+        passA.launches += 1
+        passA.tc_launches += tc
     return sdn, jnup
 
 
-def passB(pack, sdn, jnup, cpar, ops: StreamOps):
+def passB(pack, sdn, jnup, cpar, ops: StreamOps, ab=frozenset(),
+          ablate_build: bool = False):
     """BC, band fix, upward recurrence, corrections, smoothing → (fdn,
     fup).  Replaces sos_rt_tpu/ops/megastream.py::_passB_kernel.  Bound by
     bytes (four field planes).  Three kernels split it by what depends on
@@ -327,15 +391,35 @@ def passB(pack, sdn, jnup, cpar, ops: StreamOps):
     column) row (``sos_passB_band``), the upward walk, one block per column
     with threads over angles, which smooths only the join rows
     (``sos_passB_walk``), and the smoothing of every row of fup in place
-    (``sos_passB_smooth``).  One launch of passB counts one."""
+    (``sos_passB_smooth``).  One launch of passB counts one.
+
+    ``ab`` (PASS_B_FLAGS, the kernel's ``ab``: 'nopoly', 'noloops', 'nofin',
+    'nosmooth'; results are wrong) launches the ablated build
+    ``sos_passB_ablate`` (csrc/megastream_ablate.cu, one flag at a time: the
+    same stages with the flag's work cut out, no smoothing stage under
+    'nofin' and 'nosmooth'), counted in ``passB.ablate_launches`` and not in
+    ``launches``; ``ablate_build=True`` takes that build with no flag too
+    (it must equal the three stages to the bit)."""
+    ab = _pass_flags(ab, PASS_B_FLAGS, "passB")
     if not sdn.is_cuda:
-        return passB_plain(pack, sdn, jnup, cpar, ops)
+        return passB_plain(pack, sdn, jnup, cpar, ops, ab)
     dt, mm, stream = _kernel_codes(ops, pack, sdn, jnup, cpar)
     L, C, Mp = sdn.shape
     mr = ops.nb_angles
     fdn = torch.empty_like(sdn)
     fup = torch.empty_like(sdn)
     cols, t_hi, t_lo = ops.taps
+    if ab or ablate_build:
+        mask = _pass_mask(ab, "passB")
+        lib = cuda_build.library("megastream_ablate")
+        with torch.cuda.device(pack.device):
+            cuda_build.check(lib.sos_passB_ablate(
+                mask, dt, mm, _ptr(pack), _ptr(sdn), _ptr(jnup), _ptr(cpar),
+                _ptr(ops.colc), _ptr(cols), _ptr(t_hi), _ptr(t_lo), _ptr(ops.pvt),
+                _ptr(ops.bct[0]), _ptr(ops.bct[1]), _ptr(fdn), _ptr(fup), L, C, Mp, mr,
+                ops.slot, stream), "sos_passB_ablate")
+        passB.ablate_launches += 1
+        return fdn, fup
     lib = cuda_build.library("megastream")
     with torch.cuda.device(pack.device):
         cuda_build.check(lib.sos_passB_band(
@@ -355,8 +439,11 @@ def passB(pack, sdn, jnup, cpar, ops: StreamOps):
 passI.launches = passA.launches = passB.launches = 0
 # launches whose product ran on the tensor cores (csrc/quad_mma.cuh)
 passI.tc_launches = passA.tc_launches = 0
+# launches of the ablated builds (csrc/megastream_ablate.cu)
+passA.ablate_launches = passB.ablate_launches = 0
 KERNELS = (passI, passA, passB)              # the streamed loop's kernels
 TC_KERNELS = (passI, passA)                  # those with a tensor-core mainloop
+ABLATE_KERNELS = (passA, passB)              # those with an ablated build
 # every kernel wrapper of the port
 ALL_KERNELS = KERNELS + (mega_call,) + fused_sweeps.KERNELS + micro.KERNELS
 
@@ -366,6 +453,8 @@ def reset_launches() -> None:
         k.launches = 0
     for k in TC_KERNELS + (mega_call,):
         k.tc_launches = 0
+    for k in ABLATE_KERNELS:
+        k.ablate_launches = 0
     mega_call.i1in_launches = 0
 
 
@@ -373,8 +462,27 @@ def reset_launches() -> None:
 # The order loop
 # --------------------------------------------------------------------------
 
+def _loop_on(ratio, n, tol: float, max_orders: int, ab: frozenset) -> bool:
+    """The order loop's condition, read with one host sync: any column's
+    ratio ≥ tol and no column at max_orders; under 'noconv' the second
+    alone, under 'sccond' column 0's count alone.  'sccond' without
+    'noconv' raises once column 0 has converged short of max_orders: its
+    count stops there, so that loop would never end (the TPU engine's
+    does not)."""
+    if "sccond" in ab:
+        go, stuck = torch.stack([n[0] < max_orders, ratio[0] < tol]).tolist()
+        if go and stuck and "noconv" not in ab:
+            raise RuntimeError("ablate 'sccond': column 0 converged before max_orders, "
+                               "so the loop would never end; add 'noconv'")
+        return bool(go)
+    if "noconv" in ab:
+        return bool((n.max() < max_orders).item())
+    return bool(((ratio >= tol).any() & (n.max() < max_orders)).item())
+
+
 def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
-                max_orders: int, full: bool, i1dn=None, i1up=None):
+                max_orders: int, full: bool, i1dn=None, i1up=None,
+                ab=frozenset()):
     """The streamed order loop for one block of C columns.
 
     pack (PK_W, L, C), cpar (CP_W, C), tiles (NI, C, Mp).  The fields start
@@ -385,7 +493,8 @@ def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
     result does not depend on the other columns of the block.  One host
     sync per order reads the loop condition.  Returns (toa_dn, toa_up,
     srf_dn, srf_up (C, Mp), stats (3, C)), or with ``full`` (itot_dn,
-    itot_up (L, C, Mp), stats)."""
+    itot_up (L, C, Mp), stats).  ``ab`` (STREAM_ABLATE_FLAGS) cuts stages
+    out, as the TPU engine's loop does; results are wrong."""
     if i1dn is None:
         fdn, fup = passI(pack, tiles, cpar, ops)
     else:
@@ -398,22 +507,32 @@ def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
     acc = (fdn.clone(), fup.clone()) if full else None
     ratio = torch.full((C,), 2.0 * tol, dtype=dtype, device=fdn.device)
     n = torch.ones((C,), dtype=dtype, device=fdn.device)
-    while bool(((ratio >= tol).any() & (n.max() < max_orders)).item()):
+    ab = frozenset(ab)
+    ab_a, ab_b = ab & set(PASS_A_FLAGS), ab & set(PASS_B_FLAGS)
+    while _loop_on(ratio, n, tol, max_orders, ab):
         active = (ratio >= tol).to(dtype)
-        sdn, jnup = passA(pack, fdn, fup, ops)
-        fdn, fup = passB(pack, sdn, jnup, cpar, ops)
+        if "nopassA" in ab:
+            sdn, jnup = fdn, fup
+        else:
+            sdn, jnup = passA(pack, fdn, fup, ops, ab_a)
+        if "nopassB" in ab:
+            fdn, fup = sdn, jnup
+        else:
+            fdn, fup = passB(pack, sdn, jnup, cpar, ops, ab_b)
         del sdn, jnup       # free two planes before the next passA allocates
         a2 = active[:, None]
-        t_dn = t_dn + a2 * fdn[0]
-        t_up = t_up + a2 * fup[0]
-        s_dn = s_dn + a2 * fdn[L - 1]
-        s_up = s_up + a2 * fup[L - 1]
+        if "notiles" not in ab:
+            t_dn = t_dn + a2 * fdn[0]
+            t_up = t_up + a2 * fup[0]
+            s_dn = s_dn + a2 * fdn[L - 1]
+            s_up = s_up + a2 * fup[L - 1]
         if full:
             acc[0].add_(a2 * fdn)
             acc[1].add_(a2 * fup)
-        rnew = ratio_rows_tile(fup[0], t_up, fdn[L - 1], s_dn, real)
-        ratio = torch.where(active > 0.5, rnew, ratio)
-        n = n + active
+        if "noratio" not in ab:
+            rnew = ratio_rows_tile(fup[0], t_up, fdn[L - 1], s_dn, real)
+            ratio = torch.where(active > 0.5, rnew, ratio)
+        n = n + (1.0 if "noconv" in ab else active)
     stats = torch.empty((3, C), dtype=dtype, device=fdn.device)
     stats[ST_N], stats[ST_CONV], stats[ST_RATIO] = n, (ratio < tol).to(dtype), ratio
     if full:
@@ -439,9 +558,12 @@ def i1_block_of(i1dn, i1up, i: int, cols_per_block: int) -> dict:
 
 def stream_order_loop(pack, cpar, tiles, ops: StreamOps, *, tol: float,
                       max_orders: int, cols_per_block: int,
-                      outputs: str = "summary", i1dn=None, i1up=None):
+                      outputs: str = "summary", i1dn=None, i1up=None,
+                      ablate: str = ""):
     """Run the streamed order loop over the batch, one block of
-    ``cols_per_block`` columns after another.
+    ``cols_per_block`` columns after another.  ``ablate``
+    (STREAM_ABLATE_FLAGS, comma-separated) cuts stages out of every block's
+    loop (:func:`solve_block`); results are wrong.
 
     pack (PK_W, L, Bp), cpar (CP_W, Bp), tiles (NI, Bp, Mp) with Bp a
     multiple of the block size; ``i1dn`` / ``i1up`` (L, Bp, Mp), where
@@ -454,10 +576,11 @@ def stream_order_loop(pack, cpar, tiles, ops: StreamOps, *, tol: float,
     if Bp % C:
         raise ValueError(f"batch {Bp} is not a multiple of the block size {C}")
     full = outputs == "full"
+    ab = stream_ablate_flags(ablate)
     outs = []
     for i in range(Bp // C):
         res = solve_block(*block_of(pack, cpar, tiles, i, C), ops, tol=tol,
-                          max_orders=max_orders, full=full,
+                          max_orders=max_orders, full=full, ab=ab,
                           **i1_block_of(i1dn, i1up, i, C))
         if full:
             res = (res[0].transpose(0, 1), res[1].transpose(0, 1), res[2])

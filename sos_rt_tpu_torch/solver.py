@@ -17,7 +17,10 @@ Per order (the reference's while-loop body, main_lambertian.py:311-460):
      order the reference would.
 
 Everything that does not depend on Jₙ is computed once before the order
-loop (:func:`_setup_column`).  The loop runs on the host with one sync per
+loop (:func:`_setup_column`).  The stages run inside the JAX package's
+named scopes, as ``torch.profiler.record_function`` ranges:
+``sos.first_order``, and per order ``sos.source_jn``, ``sos.down_sweep``
+and ``sos.up_sweep_bc`` (``tools/profile.py`` reads them).  The loop runs on the host with one sync per
 order; no kernel of its own: the products are matrix products
 (``opts.mm`` 'bf16x3' / 'bf16x5' in float32: the split products of
 ops/precision.py), the rest elementwise work and scans.
@@ -29,6 +32,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from sos_rt_tpu_torch.config import (GridSpec, Scene, SolverOptions,
                                      full_precision_matmul, resolve_device,
@@ -156,9 +160,10 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     w_atm = dtau_atm / (dtau_atm + dtau_aer)
     w_aer = dtau_aer / (dtau_atm + dtau_aer)
 
-    i1 = first_order(opts.surface, tau, mu, M, sc.mu0, sc.grd_alb, sc.alb_atm,
-                     sc.alb_aer, tables.p0_atm, tables.p_atm, tables.p0_aer,
-                     tables.p_aer, idx_up, idx_down, w_atm, w_aer, w_mu)
+    with record_function("sos.first_order"):
+        i1 = first_order(opts.surface, tau, mu, M, sc.mu0, sc.grd_alb, sc.alb_atm,
+                         sc.alb_aer, tables.p0_atm, tables.p_atm, tables.p0_aer,
+                         tables.p_aer, idx_up, idx_down, w_atm, w_aer, w_mu)
     a_atm = source_operator(tables.p_atm.to(dtype), w_mu)
     a_aer = source_operator(tables.p_aer.to(dtype), w_mu)
 
@@ -227,9 +232,10 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     grd = sc.grd_alb[:, None]
 
     def source_fn(in_prev):
-        jn_atm = (alb_atm / 4.0) * dot_atm(in_prev)
-        jn_aer = (alb_aer / 4.0) * dot_aer(in_prev)
-        return torch.where(in_layer, wa * jn_atm + wr * jn_aer, jn_atm)
+        with record_function("sos.source_jn"):
+            jn_atm = (alb_atm / 4.0) * dot_atm(in_prev)
+            jn_aer = (alb_aer / 4.0) * dot_aer(in_prev)
+            return torch.where(in_layer, wa * jn_atm + wr * jn_aer, jn_atm)
 
     def compute_down(jn):
         jn_d = jn[:, :, :M]
@@ -277,8 +283,10 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
 
     def order_step(in_prev):
         jn = source_fn(in_prev)
-        down = compute_down(jn)
-        up = compute_up(jn, down)
+        with record_function("sos.down_sweep"):
+            down = compute_down(jn)
+        with record_function("sos.up_sweep_bc"):
+            up = compute_up(jn, down)
         return torch.cat([down, up[:, :, M:]], dim=2)
 
     return i1, order_step, tau, idx_up, idx_down

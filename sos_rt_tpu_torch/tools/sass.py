@@ -1,6 +1,7 @@
 """The shared-memory loads and stores in each loop of a kernel library's SASS.
 
 usage: python -m sos_rt_tpu_torch.tools.sass [LIBRARY] [--match TEXT]
+           [--same-as OTHER]
 
 Disassembles LIBRARY (default: the ``micro`` library, built first if
 needed) with ``cuobjdump -sass`` and prints, for each kernel whose name
@@ -10,7 +11,9 @@ stores (STS, STSM), global loads and stores, block barriers and
 tensor-core instructions (HGMMA, HMMA).  A loop nested in another counts
 in both.  The micro tools time each rep's round trip through shared
 memory, so every rep loop must issue shared loads and stores
-(:func:`rep_loop`).
+(:func:`rep_loop`).  ``--same-as OTHER`` instead compares the code of
+LIBRARY's kernels with OTHER's (:func:`same_code`): e.g. a checkout's
+``megastream`` library against its parent's, built alike.
 """
 from __future__ import annotations
 
@@ -126,10 +129,38 @@ def library_loops(path: str, match: str = "") -> dict:
             if match in name}
 
 
+def same_code(path: str, other: str, match: str = "") -> dict:
+    """Whether the kernels of two libraries compile to the same SASS, byte
+    for byte: each kernel's instructions with their addresses, matched by
+    body and not by name (a template parameter with a default renames a
+    kernel and leaves its code).  Returns {'kernels': [n, n_other],
+    'same': bool, 'only_here': [names], 'only_there': [names]}."""
+    from collections import Counter
+
+    def local_labels(insns):
+        # branch labels are numbered across the library: renumber them
+        # in order of first use within the kernel
+        names = {}
+        sub = lambda m: names.setdefault(m.group(0), f".L{len(names)}")
+        return tuple((a, re.sub(r"\.L_x_\d+", sub, t)) for a, t in insns)
+
+    def bodies(p):
+        return {name: local_labels(insns) for name, (insns, _) in
+                functions(disassemble(p)).items() if match in name}
+
+    here, there = bodies(path), bodies(other)
+    left = Counter(here.values()) - Counter(there.values())
+    right = Counter(there.values()) - Counter(here.values())
+    return {"kernels": [len(here), len(there)], "same": not left and not right,
+            "only_here": sorted(n for n, b in here.items() if b in left),
+            "only_there": sorted(n for n, b in there.items() if b in right)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("library", nargs="?", help="a built .so (default: the micro library)")
     ap.add_argument("--match", default="", help="keep kernels whose name holds this")
+    ap.add_argument("--same-as", help="compare the kernels' code with this library's")
     args = ap.parse_args(argv)
     path = args.library
     if path is None:
@@ -137,6 +168,10 @@ def main(argv=None) -> dict:
 
         cuda_build.library("micro")
         path = cuda_build._lib_path("micro")
+    if args.same_as:
+        res = same_code(path, args.same_as, args.match)
+        print(json.dumps(res), flush=True)
+        return res
     found = library_loops(path, args.match)
     for name, rows in found.items():
         print(json.dumps({"kernel": name, "rep_loop": rep_loop(rows), "loops": rows}),

@@ -75,8 +75,10 @@ def test_every_variant_runs_its_fixed_order_count(case):
 def test_ablate_rejects_what_it_cannot_cut(case):
     scenes, tables, opts = case
     args = port_inputs(scenes, tables, GRID, opts)
-    with pytest.raises(ValueError, match="resident"):
-        solve_batch_mega(*args, stream=True, device="cpu", ablate="noconv")
+    # the streamed execution takes its own flags (tests/test_torch_ablate_stream.py),
+    # not the resident kernel's 'noi1' and 'nobc'
+    with pytest.raises(ValueError, match="streamed execution"):
+        solve_batch_mega(*args, stream=True, device="cpu", ablate="noconv,nobc")
     with pytest.raises(ValueError, match="unknown ablate"):
         solve_batch_mega(*args, stream=False, device="cpu", ablate="nothing")
     assert mk.ablate_mask("noconv,noratio") == 1 | 1 << 10

@@ -34,7 +34,12 @@ repeat their plain versions operation by operation and must equal them to
 the bit, in float32 and in float64, at the main paths' widths.  So do the micro kernels (csrc/micro.cu), rep by
 rep, but for their three products (1e-5 of scale); the resident kernel's
 ablated builds (csrc/mega_ablate.cuh) equal mega_plain with the same flags to
-1e-12 in float64, and their build of the solve equals sos_mega to the bit.
+1e-12 in float64, and their build of the solve equals sos_mega to the bit;
+the streamed passes' ablated builds (csrc/megastream_ablate.cu) equal
+passA_plain / passB_plain with the same flag (passA to the products'
+tolerance, passB to the bit), their empty mask equals sos_passA and the
+passB stages to the bit, and the streamed loop with every flag of
+tools/ablate_stream.py equals the CPU's in float64 (1e-12).
 The resident kernel with the first order from the host (sos_mega_i1in) is
 held against mega_plain started from the same planes as sos_mega is, and to
 sos_mega itself in float64 (1e-12).
@@ -53,6 +58,7 @@ from sos_rt_tpu_torch.ops import megastream as ms
 from sos_rt_tpu_torch.ops import micro
 from sos_rt_tpu_torch.parallel import broadcast_scene, solve_batch
 from sos_rt_tpu_torch.solver import PhaseTables
+from sos_rt_tpu_torch.tools import ablate_stream
 
 pytestmark = pytest.mark.cuda
 GRID = GridSpec(56, 64)
@@ -814,3 +820,52 @@ def test_ablate_build_of_the_solve_equals_sos_mega(cuda, dtype):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError):
         mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, ablate="noconv,nobc,nofin", **kw)
+
+
+@pytest.mark.parametrize("dtype,mm,tol", [(torch.float64, "highest", 1e-12),
+                                          (torch.float32, "bf16x3", 1e-5),
+                                          (torch.float32, "highest", 1e-5)])
+def test_ablated_passes_match_plain(cuda, dtype, mm, tol):
+    """Each flag of passA / passB cuts what the plain version cuts; the
+    empty mask of the ablated build is the solve's build to the bit."""
+    scenes, tables = _inputs(cuda, dtype)
+    opts = SolverOptions(dtype=str(dtype).split(".")[1], mm=mm)
+    sb = prepare_batch(scenes, tables, GRID, opts, device=cuda)
+    pack, cpar, tiles = sb.block(0)
+    ops = sb.ops
+    fdn, fup = ms.passI_plain(pack, tiles, cpar, ops)
+    ms.reset_launches()
+    for f in ms.PASS_A_FLAGS:
+        for k, p in zip(ms.passA(pack, fdn, fup, ops, ab={f}),
+                        ms.passA_plain(pack, fdn, fup, ops, {f})):
+            assert _rel(k, p) <= tol, f
+    assert all(torch.equal(a, b) for a, b in zip(
+        ms.passA(pack, fdn, fup, ops), ms.passA(pack, fdn, fup, ops, ablate_build=True)))
+    sdn, jn = ms.passA_plain(pack, fdn, fup, ops)
+    outs = {}
+    for f in ms.PASS_B_FLAGS:
+        outs[f] = ms.passB(pack, sdn, jn, cpar, ops, ab={f})
+        for k, p in zip(outs[f], ms.passB_plain(pack, sdn, jn, cpar, ops, {f})):
+            assert torch.equal(k, p), f
+    assert all(torch.equal(a, b) for a, b in zip(outs["nofin"], outs["nosmooth"]))
+    assert all(torch.equal(a, b) for a, b in zip(
+        ms.passB(pack, sdn, jn, cpar, ops),
+        ms.passB(pack, sdn, jn, cpar, ops, ablate_build=True)))
+    assert (ms.passA.ablate_launches, ms.passB.ablate_launches) == (3, 5)
+    assert (ms.passA.launches, ms.passB.launches) == (1, 1)
+    with pytest.raises(ValueError, match="one flag at a time"):
+        ms.passB(pack, sdn, jn, cpar, ops, ab={"nofin", "nopoly"})
+
+
+@pytest.mark.parametrize("ablate", ablate_stream.variants()
+                         + ("sccond", "notiles", "noratio", "nopassA"))
+def test_ablated_stream_on_card_matches_cpu(cuda, ablate):
+    """The streamed loop with the tool's flags, float64: the card's equals
+    the CPU's plain loop, equal order counts, 1e-12 of scale."""
+    opts = SolverOptions(dtype="float64", max_orders=6)
+    sols = [solve_batch_mega(*_inputs(dev, torch.float64), GRID, opts, outputs="summary",
+                             stream=True, sort=False, device=dev, ablate=ablate)
+            for dev in (cuda, torch.device("cpu"))]
+    assert torch.equal(sols[0].n_orders.cpu(), sols[1].n_orders)
+    for f in ("i_toa", "i_surface"):
+        assert _rel(getattr(sols[0], f).cpu(), getattr(sols[1], f)) <= 1e-12

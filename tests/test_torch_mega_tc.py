@@ -391,3 +391,50 @@ def test_mega_call_with_host_i1_launches_sos_mega_i1in(fake_card, mm):
     assert (mk.mega_call.launches, mk.mega_call.tc_launches,
             mk.mega_call.i1in_launches) == (1, int(tc), 1)
     assert len(args) == len(cuda_build.SIGNATURES["megakernel"]["sos_mega_i1in"])
+
+
+# the streamed passes' ablated builds (csrc/megastream_ablate.cu): the AB bit
+# of each flag (csrc/sos_tiles.cuh)
+PASS_FLAG_BITS = {"nosrc": 4, "noloops": 8, "nopoly": 32, "nofin": 256, "nosmooth": 512}
+
+
+@pytest.mark.parametrize("name,flag", [("passA", f) for f in ms.PASS_A_FLAGS]
+                         + [("passB", f) for f in ms.PASS_B_FLAGS])
+def test_pass_flags_launch_the_ablated_build(fake_card, name, flag):
+    """A pass with a flag calls its ablated build's one entry point with the
+    flag's AB bit first, under the tensor's device, and counts it in
+    ``ablate_launches``, not in ``launches``; no flag with
+    ``ablate_build=True`` calls the same entry point with mask 0."""
+    sb = _batch(64, "bf16x3", torch.float32)
+    ops = _on_card(sb.ops)
+    pack, cpar, tiles = sb.block(0)
+    f = torch.zeros((pack.shape[1], pack.shape[2], ops.mp))
+    call = ((lambda **kw: ms.passA(pack, f, f.clone(), ops, **kw)) if name == "passA"
+            else (lambda **kw: ms.passB(pack, f, f.clone(), cpar, ops, **kw)))
+    call(ab={flag})
+    call(ablate_build=True)
+    entry = f"sos_{name}_ablate"
+    assert [c[0] for c in fake_card.calls] == [entry, entry]
+    assert [c[1][:3] for c in fake_card.calls] == [(PASS_FLAG_BITS[flag], 0, 1), (0, 0, 1)]
+    assert {cur for _, _, cur in fake_card.calls} == {(CPU,)}
+    wrapper = getattr(ms, name)
+    assert wrapper.ablate_launches == 2 and wrapper.launches == 0
+    assert ms.passA.tc_launches == 0
+
+
+def test_pass_flags_refuse_what_is_not_built(fake_card):
+    """Two flags at once, or another pass's flag, raise before any launch;
+    a failing ablated build raises and counts nothing."""
+    sb = _batch(64, "bf16x3", torch.float32)
+    ops = _on_card(sb.ops)
+    pack, cpar, tiles = sb.block(0)
+    f = torch.zeros((pack.shape[1], pack.shape[2], ops.mp))
+    with pytest.raises(ValueError, match="one flag at a time"):
+        ms.passA(pack, f, f, ops, ab={"nosrc", "noloops"})
+    with pytest.raises(ValueError, match="passB takes"):
+        ms.passB(pack, f, f, cpar, ops, ab={"nosrc"})
+    fake_card.fail.add("sos_passB_ablate")
+    with pytest.raises(cuda_build.KernelLaunchError, match="sos_passB_ablate"):
+        ms.passB(pack, f, f, cpar, ops, ab={"nofin"})
+    assert [c[0] for c in fake_card.calls] == ["sos_passB_ablate"]
+    assert ms.passB.ablate_launches == ms.passB.launches == 0
