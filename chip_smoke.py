@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (sos_rt_tpu_torch) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py        # about 4 min on an H100, the build included
+    python3 chip_smoke.py        # about 5 min on an H100, the build included
 
 Phases, one JSON line each on stdout:
 
@@ -147,6 +147,34 @@ Phases, one JSON line each on stdout:
                  F64_P50_TOL), every field finite, a synchronise after
                  each solve; the launch counts show the fused engine
                  taking the bottom batch of the mega engine.
+15c. ``mesh``     column sharding over a DeviceMesh (parallel.make_mesh): a
+                 world-size-1 NCCL group started in this process; the
+                 fwc_sweep batch (resident sos_mega), the canonical batch
+                 (streamed passI/A/B, summary) and the fused_canonical batch
+                 (engine='fused') through solve_batch(mesh=) equal to the
+                 unsharded solve_batch(sort='score') to the bit, with the
+                 same launches, and both col/s; 8 canonical columns in
+                 float64 with shard_tables=True (reference engine) against
+                 the unsharded solve (equal order counts, rtol 1e-12);
+                 solve_batch_multihost on the fwc batch to the bit; then,
+                 the group destroyed, ``python -m sos_rt_tpu_torch sweep
+                 --preset fwc_sweep --batch 16384 --chunk 4096 --mesh`` in
+                 its own process (n_devices 1) against the same command with
+                 --sort score and no --mesh: the same shards to the bit;
+                 then MESH_RANKS gloo ranks on the one card (CUDA tensors,
+                 processes of their own, mesh_rank): the fwc batch on a
+                 (2, 1) mesh within MEGA_BATCH_LIMITS of the unsharded
+                 solve, every rank launching mega_call, shard_tables on a
+                 (1, 2) mesh (rtol 1e-12).
+15d. ``layer_sharded`` solve_column_layer_sharded on a ('data',) mesh of a
+                 world-size-1 NCCL group at 64 × 800 (the fwc_sweep
+                 preset's angles and models, LAYER_SCENE), both surfaces:
+                 float64 against solve_column on the card (equal order
+                 counts, within 1e-12 of scale), float32 equal order counts
+                 and p50 below F64_P50_TOL against float64; the gloo ranks'
+                 column of phase ``mesh`` the same way; one 64 × 65,536
+                 column in float64 beside solve_column: wall s, orders,
+                 peak memory, and within 1e-12 of scale.
 16. ``fused_f64`` solve_batch(engine='fused') in float64 on the card against
                  the same solve on the CPU, on GridSpec(56, 64) and on the
                  Gauss grid GridSpec(51, 24) with small-µ columns: equal
@@ -227,6 +255,12 @@ Phases, one JSON line each on stdout:
                  fused engines) and by kernel, the window's host ms and
                  the device's busy share; beside them the route's
                  layer_reaches_ground on one 4096-column chunk.
+
+``python3 chip_smoke.py --gpus`` runs only ``mesh_gpus``, on a host with
+more than one card: ``sweep --preset fwc_sweep --batch 65536 --chunk 16384
+--mesh`` under torchrun (one NCCL rank a card) against the same command on
+one card with --sort score: the shards within MEGA_BATCH_LIMITS, both
+commands' metrics (n_devices the number of cards) and walls.
 
 Then the ``{"kernels": [...]}`` line (eight kernels, and sos_mega_i1in
 after mega_call; passA and passB with their ablated build under
@@ -2283,6 +2317,378 @@ def phase_edge_layers(device):
     emit(out)
 
 
+# the card's share of the mesh phases: the gloo group of MESH_RANKS ranks on
+# the one card (CUDA tensors; NCCL takes one rank a card), the mesh the
+# sharded-tables case runs on, and the layer-sharded grids
+MESH_RANKS = 2
+LAYER_GRID = (64, 800)
+LONG_LAYERS = 65536
+# the sweep of ``--gpus`` (four chunks)
+GPUS_BATCH = 65536
+LAYER_SCENE = dict(mu0=0.5, grd_alb=0.3, tau_star_aer=0.2)
+
+
+def canonical_batch(device, B: int, dtype, **over):
+    """The canonical phase's batch: the ``hg`` preset at 501×800, (ρ,
+    τ*_aer, ω_aer) drawn per column from SEED, one shared µ0 table."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import PhaseTables
+
+    preset = get_preset("hg")
+    scenes = random_scenes(preset, B, device, np.random.default_rng(SEED))
+    scenes = dataclasses.replace(scenes, **{
+        k: torch.full((B,), v, dtype=torch.float64, device=device) for k, v in over.items()})
+    return preset.grid, scenes, PhaseTables.from_models(
+        preset.grid, 0.5, atm=preset.atm, aer=preset.aer, dtype=dtype, device=device)
+
+
+def layer_problem(device, dtype, nb_layers: int = LAYER_GRID[1]):
+    """The layer-sharded column: the fwc_sweep preset's 64 angles and
+    phase models at ``nb_layers`` layers, LAYER_SCENE."""
+    from sos_rt_tpu_torch.config import GridSpec, Scene
+    from sos_rt_tpu_torch.presets import get_preset
+    from sos_rt_tpu_torch.solver import PhaseTables
+
+    preset = get_preset("fwc_sweep")
+    grid = GridSpec(LAYER_GRID[0], nb_layers)
+    return Scene(**LAYER_SCENE), PhaseTables.from_models(
+        grid, LAYER_SCENE["mu0"], atm=preset.atm, aer=preset.aer, dtype=dtype,
+        device=device), grid
+
+
+def mesh_rank(rank: int, world: int, store: str, out: str):
+    """One rank of the gloo group on the card (run by phase ``mesh`` in a
+    process of its own): the fwc batch on a (world, 1) mesh, the 8
+    canonical columns with shard_tables on a (1, world) mesh, and the
+    layer-sharded column on a (world,) mesh; writes its results to
+    ``out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sos_rt_tpu_torch.config import SolverOptions
+    from sos_rt_tpu_torch.fused import take_columns
+    from sos_rt_tpu_torch.ops import megastream as ms
+    from sos_rt_tpu_torch.parallel import make_mesh, solve_batch
+    from sos_rt_tpu_torch.parallel.layer_sharded import solve_column_layer_sharded
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    res = {}
+    preset, scenes, tables = fwc_batch(torch.device("cuda"))
+    ms.reset_launches()
+    sol = solve_batch(scenes, tables[torch.float32], preset.grid, preset.opts,
+                      engine="mega", outputs="summary", mesh=make_mesh(device="cuda"))
+    res["fwc_launches"] = np.array(json.dumps(launch_counts()))
+    for k in ("n_orders", "i_toa", "i_surface"):
+        res[f"fwc_{k}"] = getattr(sol, k).cpu().numpy()
+    grid, scenes, tables = canonical_batch(torch.device("cuda"), 256, torch.float64)
+    sub = torch.arange(8, device="cuda") * 32
+    sol = solve_batch(take_columns(scenes, sub), tables, grid,
+                      SolverOptions(surface="lambertian", dtype="float64"),
+                      engine="reference", shard_tables=True,
+                      mesh=make_mesh((1, world), device="cuda"))
+    res["tp_n_orders"], res["tp_i_total"] = sol.n_orders.cpu().numpy(), sol.i_total.cpu().numpy()
+    scene, tables, grid = layer_problem(torch.device("cuda"), torch.float64)
+    sol = solve_column_layer_sharded(scene, tables, grid, SolverOptions(dtype="float64"),
+                                     make_mesh((world,), ("data",), device="cuda"))
+    res["ls_n_orders"], res["ls_i_total"] = sol.n_orders.cpu().numpy(), sol.i_total.cpu().numpy()
+    np.savez(out, **res)
+    dist.destroy_process_group()
+
+
+def run_mesh_ranks(world: int) -> list:
+    """mesh_rank on ``world`` processes of their own (a file store under
+    build/); returns each rank's results and the wall seconds."""
+    import shutil
+
+    import numpy as np
+
+    tmp = os.path.join(HERE, "build", "sos_rt_tpu_torch", "mesh_ranks")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    src = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+           "chip_smoke.mesh_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", src, str(r), str(world),
+                               os.path.join(tmp, "store"), os.path.join(tmp, f"rank{r}.npz")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"mesh: rank {r} of {world} failed:\n{log[-3000:]}")
+    outs = []
+    for r in range(world):
+        with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+            outs.append({k: z[k] for k in z.files})
+    return outs, time.perf_counter() - t0
+
+
+def phase_mesh(device):
+    """Column sharding over a DeviceMesh: a world-size-1 NCCL group in this
+    process, then MESH_RANKS gloo ranks on the one card.  Returns the gloo
+    ranks' results (phase ``layer_sharded`` reads their layer-sharded
+    column)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sos_rt_tpu_torch import cli
+    from sos_rt_tpu_torch.config import SolverOptions
+    from sos_rt_tpu_torch.fused import take_columns
+    from sos_rt_tpu_torch.parallel import make_mesh, solve_batch
+    from sos_rt_tpu_torch.parallel.distributed import solve_batch_multihost
+    from sos_rt_tpu_torch.sweep import load_sweep
+
+    mesh = make_mesh()
+    out = {"phase": "mesh", "world_size": dist.get_world_size(),
+           "backend": dist.get_backend(), "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "cases": {}}
+
+    def same_bits(name, a, b):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                fail(f"mesh {name}: {f.name} differs from the unsharded solve")
+
+    def pair(name, args, need, **kw):
+        """The unsharded solve sorted by the score and the meshed one, to
+        the bit, with the same launches."""
+        wall_p, plain, launches_p = timed_solve(lambda: solve_batch(
+            *args, sort="score", device=device, **kw))
+        wall_m, meshed, launches = timed_solve(lambda: solve_batch(*args, mesh=mesh, **kw))
+        same_bits(name, meshed, plain)
+        if launches != launches_p or any(launches[k] == 0 for k in need):
+            fail(f"mesh {name}: launches {launches}, unsharded {launches_p}")
+        B = plain.n_orders.shape[0]
+        out["cases"][name] = {"batch": B, "col_per_s": B / wall_m,
+                              "plain_col_per_s": B / wall_p, "same_bits": True,
+                              "launches": {k: v for k, v in launches.items() if v}}
+        return plain
+
+    preset, scenes, tables = fwc_batch(device)
+    fwc_args = (scenes, tables[torch.float32], preset.grid, preset.opts)
+    fwc = pair("fwc_sweep", fwc_args, ("mega_call",), engine="mega", outputs="summary")
+    grid, cscenes, ctables = canonical_batch(device, 256, torch.float32)
+    f32 = SolverOptions(surface="lambertian", dtype="float32", mm="bf16x3")
+    pair("canonical", (cscenes, ctables, grid, f32), ("passI", "passA", "passB"),
+         engine="mega", outputs="summary", cols_per_block=128)
+    fgrid, fscenes, ftables = canonical_batch(device, 64, torch.float32, tau_star_atm=0.044)
+    pair("fused_canonical", (fscenes, ftables, fgrid, f32), ("down_sweep", "up_sweep_smooth"),
+         engine="fused")
+
+    # the sharded source operators on the reference engine, float64
+    _, _, t64 = canonical_batch(device, 8, torch.float64)
+    sub = torch.arange(8, device=device) * 32
+    s8, f64 = take_columns(cscenes, sub), SolverOptions(surface="lambertian", dtype="float64")
+    plain = solve_batch(s8, t64, grid, f64, engine="reference", device=device)
+    tp = solve_batch(s8, t64, grid, f64, engine="reference", shard_tables=True, mesh=mesh)
+    out["cases"]["reference_shard_tables"] = {
+        "batch": 8, "n_orders": tp.n_orders.tolist(),
+        "rel_err": same_solutions(tp, plain, 1e-12, "mesh reference_shard_tables")}
+
+    # each rank solves the columns it holds
+    wall, local, launches = timed_solve(lambda: solve_batch_multihost(
+        *fwc_args, engine="mega", outputs="summary"))
+    same_bits("multihost", local, fwc)
+    out["cases"]["multihost"] = {"batch": fwc.n_orders.shape[0], "same_bits": True,
+                                 "col_per_s": fwc.n_orders.shape[0] / wall,
+                                 "launches": {k: v for k, v in launches.items() if v}}
+    dist.destroy_process_group()
+
+    # the sweep command with --mesh in a process of its own, beside the
+    # same command without it, sorted by the score, in this one
+    dirs = {k: os.path.join(HERE, "build", "sos_rt_tpu_torch", f"sweep_{k}")
+            for k in ("mesh", "score")}
+    argv = ["sweep", "--preset", "fwc_sweep", "--batch", "16384", "--chunk", "4096"]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "sos_rt_tpu_torch", *argv, "--mesh",
+                          "-o", dirs["mesh"], "--metrics",
+                          os.path.join(dirs["mesh"], "metrics.json")],
+                         cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"mesh: sweep --mesh failed:\n{run.stderr[-3000:]}")
+    with open(os.path.join(dirs["mesh"], "metrics.json")) as f:
+        m = json.load(f)
+    if m.get("n_devices") != 1 or not m.get("complete"):
+        fail(f"mesh: sweep --mesh metrics {m}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(argv + ["--sort", "score", "-o", dirs["score"]])
+    got, want = load_sweep(dirs["mesh"]), load_sweep(dirs["score"])
+    if sorted(got) != sorted(want) or not all(np.array_equal(got[k], want[k]) for k in want):
+        fail("mesh: sweep --mesh shards differ from the unmeshed command's")
+    out["sweep_cli_mesh"] = {"argv": argv + ["--mesh"], "metrics": m, "call_wall_s": wall,
+                             "same_bits": True,
+                             "log": [ln for ln in run.stderr.splitlines()
+                                     if ln.startswith("[sos]")]}
+
+    # MESH_RANKS gloo ranks on the card
+    outs, wall = run_mesh_ranks(MESH_RANKS)
+    rows = lambda o: [torch.as_tensor(o["fwc_i_toa"]), torch.as_tensor(o["fwc_i_surface"])]
+    for r, o in enumerate(outs):
+        if any(not np.array_equal(o[k], outs[0][k]) for k in o if k != "fwc_launches"):
+            fail(f"mesh: rank {r} of the gloo run holds another result than rank 0")
+        if not json.loads(str(o["fwc_launches"]))["mega_call"]:
+            fail(f"mesh: rank {r} launched no mega_call")
+    found, _ = loops_within_limits(torch.as_tensor(outs[0]["fwc_n_orders"]),
+                                   fwc.n_orders.cpu(), rows(outs[0]),
+                                   [fwc.i_toa.cpu(), fwc.i_surface.cpu()],
+                                   f"mesh gloo {MESH_RANKS} ranks fwc_sweep")
+    tp_ranks = dataclasses.replace(plain, n_orders=torch.as_tensor(outs[0]["tp_n_orders"]),
+                                   i_total=torch.as_tensor(outs[0]["tp_i_total"]))
+    out["gloo_ranks"] = {
+        "world_size": MESH_RANKS, "backend": "gloo", "wall_s": wall,
+        "fwc_sweep": {**found, "same_bits": bool(
+            np.array_equal(outs[0]["fwc_i_toa"], fwc.i_toa.cpu().numpy())
+            and np.array_equal(outs[0]["fwc_n_orders"], fwc.n_orders.cpu().numpy())),
+            "launches": [json.loads(str(o["fwc_launches"])) for o in outs]},
+        "reference_shard_tables": same_solutions(tp_ranks, plain, 1e-12,
+                                                 "mesh gloo reference_shard_tables")}
+    emit(out)
+    return outs
+
+
+def phase_mesh_gpus():
+    """``sweep --mesh`` over every visible card (torchrun, one NCCL rank a
+    card) against the same command on one card with --sort score, each in
+    processes of their own: the shards within MEGA_BATCH_LIMITS (and
+    whether they are equal to the bit), both commands' metrics (col/s:
+    run_sweep's solve time per shard) and walls.  Run by ``--gpus``."""
+    import numpy as np
+    import torch
+
+    from sos_rt_tpu_torch.ops.cuda_build import build_all
+    from sos_rt_tpu_torch.sweep import load_sweep
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        fail(f"--gpus needs more than one card, {n} visible")
+    build_all(("megakernel", "megastream"))     # once, before the ranks load them
+    argv = ["sweep", "--preset", "fwc_sweep", "--batch", str(GPUS_BATCH), "--chunk",
+            str(GPUS_BATCH // 4)]
+    runs = {"mesh": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     f"--nproc-per-node={n}", "-m", "sos_rt_tpu_torch", *argv, "--mesh"],
+            "one_card": [sys.executable, "-m", "sos_rt_tpu_torch", *argv, "--sort", "score"]}
+    out = {"phase": "mesh_gpus", "world_size": n, "argv": argv, "cards": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.splitlines()}
+    res = {}
+    for name, cmd in runs.items():
+        d = os.path.join(HERE, "build", "sos_rt_tpu_torch", f"gpus_{name}")
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd + ["-o", d, "--metrics", os.path.join(d, "metrics.json")],
+                             cwd=HERE, capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            fail(f"mesh_gpus {name} failed:\n{run.stderr[-3000:]}")
+        with open(os.path.join(d, "metrics.json")) as f:
+            out[name] = {"metrics": json.load(f), "call_wall_s": time.perf_counter() - t0,
+                         "log": [ln for ln in run.stderr.splitlines() if ln.startswith("[sos]")]}
+        res[name] = load_sweep(d)
+    if out["mesh"]["metrics"]["n_devices"] != n:
+        fail(f"mesh_gpus: n_devices {out['mesh']['metrics']['n_devices']}, {n} cards")
+    a, b = res["mesh"], res["one_card"]
+    t = lambda x: torch.as_tensor(x)
+    out["found"], _ = loops_within_limits(t(a["n_orders"]), t(b["n_orders"]),
+                                          [t(a["i_toa"]), t(a["i_surface"])],
+                                          [t(b["i_toa"]), t(b["i_surface"])], "mesh_gpus")
+    out["same_bits"] = all(np.array_equal(a[k], b[k]) for k in b)
+    emit(out)
+
+
+def phase_layer_sharded(device, ranks):
+    """solve_column_layer_sharded on a ('data',) mesh of a world-size-1 NCCL
+    group against solve_column on the card, and the gloo ranks' result of
+    phase ``mesh``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from sos_rt_tpu_torch.config import SolverOptions
+    from sos_rt_tpu_torch.parallel import make_mesh
+    from sos_rt_tpu_torch.parallel.layer_sharded import solve_column_layer_sharded
+    from sos_rt_tpu_torch.solver import solve_column
+
+    mesh = make_mesh((1,), ("data",))
+    out = {"phase": "layer_sharded", "world_size": dist.get_world_size(),
+           "grid": list(LAYER_GRID), "cases": {}}
+
+    def close(a, b, what):
+        """Equal order counts, within 1e-12 of scale; the difference."""
+        scale = float(b.i_total.abs().max())
+        diff = float((a.i_total.cpu() - b.i_total.cpu()).abs().max()) / scale
+        if int(a.n_orders) != int(b.n_orders) or not diff <= 1e-12 or not bool(a.converged):
+            fail(f"layer_sharded {what}: orders {int(a.n_orders)} vs {int(b.n_orders)}, "
+                 f"{diff:.3e} of scale")
+        return diff
+
+    for surface in ("lambertian", "specular"):
+        opts = SolverOptions(surface=surface, dtype="float64")
+        scene, t64, grid = layer_problem(device, torch.float64)
+        w_ref, ref, launches = timed_solve(lambda: solve_column(scene, t64, grid, opts,
+                                                                device=device))
+        w_ls, ls, launches_ls = timed_solve(lambda: solve_column_layer_sharded(
+            scene, t64, grid, opts, mesh))
+        no_launches({**launches, **{k + "_ls": v for k, v in launches_ls.items()}},
+                    f"layer_sharded {surface}")
+        case = {"n_orders": int(ls.n_orders), "wall_s": w_ls, "solve_column_wall_s": w_ref,
+                "vs_solve_column": close(ls, ref, surface)}
+        _, t32, _ = layer_problem(device, torch.float32)
+        ls32 = solve_column_layer_sharded(scene, t32, grid,
+                                          dataclasses.replace(opts, dtype="float32"), mesh)
+        got, want = ls32.i_total.cpu().double(), ls.i_total.cpu()
+        keep = want.abs() > 1e-12 * want.abs().max()
+        case["f32_p50_rel_vs_f64"] = float(((got - want).abs()[keep] / want.abs()[keep]).median())
+        if int(ls32.n_orders) != int(ls.n_orders) or not case["f32_p50_rel_vs_f64"] < F64_P50_TOL:
+            fail(f"layer_sharded {surface} float32: {int(ls32.n_orders)} orders, "
+                 f"p50 {case['f32_p50_rel_vs_f64']:.3e}")
+        if surface == "lambertian":
+            g = ranks[0]
+            case[f"gloo_{MESH_RANKS}_ranks_vs_solve_column"] = close(
+                dataclasses.replace(ref, n_orders=torch.as_tensor(g["ls_n_orders"]),
+                                    i_total=torch.as_tensor(g["ls_i_total"])), ref,
+                f"gloo {MESH_RANKS} ranks")
+        out["cases"][surface] = case
+
+    # one long column, float64: wall, orders and peak memory of both solves
+    opts = SolverOptions(dtype="float64")
+    scene, t64, grid = layer_problem(device, torch.float64, LONG_LAYERS)
+    long = {"grid": [LAYER_GRID[0], LONG_LAYERS]}
+    sols = {}
+    for name, fn in (("layer_sharded", lambda: solve_column_layer_sharded(
+            scene, t64, grid, opts, mesh)),
+                     ("solve_column", lambda: solve_column(scene, t64, grid, opts,
+                                                           device=device))):
+        torch.cuda.reset_peak_memory_stats()
+        wall, sols[name], _ = timed_solve(fn)
+        long[name] = {"wall_s": wall, "n_orders": int(sols[name].n_orders),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    long["vs_solve_column"] = close(sols["layer_sharded"], sols["solve_column"], "long column")
+    out["long_column"] = long
+    dist.destroy_process_group()
+    emit(out)
+
+
 def run_tool(main, argv):
     """A tool's main(argv) with its printed lines captured: (result, lines)."""
     import contextlib
@@ -2820,7 +3226,11 @@ def phase_trace(device):
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--gpus", action="store_true",
+                    help="run only phase mesh_gpus: the sweep command over every "
+                         "visible card against one card")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2836,6 +3246,12 @@ def main(argv=None) -> int:
                           os.path.join(HERE, "build", "sos_rt_tpu_torch", "tables"))
     device = torch.device("cuda")
     t0 = time.perf_counter()
+    if args.gpus:
+        phase_mesh_gpus()
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     phase_card()
     sweep_abs = phase_kernels(device)
     phase_slice_f64(device)
@@ -2854,6 +3270,7 @@ def main(argv=None) -> int:
     phase_sweep_orders(device)
     phase_single_layer(device)
     phase_edge_layers(device)
+    phase_layer_sharded(device, phase_mesh(device))
     phase_fused_f64(device)
     sweeps = phase_fused_canonical(device, sweep_abs)
     fused_abs = phase_fused_sweep(device)

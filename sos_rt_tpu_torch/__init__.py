@@ -7,8 +7,7 @@ kernels (``csrc/``) are compiled at first use.  Entry points run on the
 GPU unless the caller passes ``device='cpu'``, which runs the plain
 PyTorch versions of the kernels.
 """
-from sos_rt_tpu_torch.config import (GridSpec, NotPortedError, Scene,  # noqa: F401
-                                     SolverOptions)
+from sos_rt_tpu_torch.config import GridSpec, Scene, SolverOptions  # noqa: F401
 from sos_rt_tpu_torch.solver import PhaseTables, Solution  # noqa: F401
 
 __version__ = "0.3.0"

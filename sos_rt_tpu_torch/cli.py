@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from sos_rt_tpu_torch.config import SCENE_FIELDS, NotPortedError, torch_dtype
+from sos_rt_tpu_torch.config import SCENE_FIELDS, torch_dtype
 
 
 def _build(preset, dtype, device):
@@ -225,8 +225,11 @@ def cmd_sweep(args):
     """Batched column sweep.  Defaults for a sweep preset: mega engine,
     summary outputs, µ0 drawn from a 64-value pool.  With ``--chunk`` +
     ``--output DIR`` results are written as resumable per-chunk shards
-    (``--resume`` skips completed ones)."""
+    (``--resume`` skips completed ones).  ``--mesh`` shards the columns
+    over every rank of the process group (``parallel.make_mesh``); the
+    mesh's first rank writes the shards and reports."""
     from sos_rt_tpu_torch import sweep as _sweep
+    from sos_rt_tpu_torch.parallel.mesh import is_first_rank, make_mesh
     from sos_rt_tpu_torch.presets import get_preset
 
     p = get_preset(args.preset)
@@ -238,17 +241,20 @@ def cmd_sweep(args):
     engine = args.engine or ("mega" if p.batch else "reference")
     outputs = "full" if (args.full or engine != "mega") else "summary"
     mu0_pool = args.mu0_pool if args.mu0_pool is not None else (64 if p.batch else 0)
-    if args.mesh:
-        raise NotPortedError("--mesh (multi-GPU column sharding) is not "
-                             "ported yet; see ROADMAP.md")
+    mesh = make_mesh(device=args.device) if args.mesh else None
     # --output without --chunk = one shard covering the whole batch
     chunk = args.chunk or (batch if args.output else 0)
     log = lambda m: print(f"[sos] {m}", file=sys.stderr)
+    if mesh is not None and is_first_rank(mesh):
+        log(f"mesh of {mesh.size()} rank(s), {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+            f"on {mesh.device_type}")
     m = _sweep.run_sweep(
         p, batch, seed=args.seed, mu0_pool=mu0_pool, engine=engine,
         outputs=outputs, buckets=args.buckets, block_b=args.block_b,
-        chunk=chunk, out_dir=args.output, resume=args.resume, log=log,
+        chunk=chunk, out_dir=args.output, resume=args.resume, mesh=mesh, log=log,
         save_orders=args.save_orders, sort=args.sort, device=args.device)
+    if mesh is not None and not is_first_rank(mesh):
+        return
     m["preset"], m["batch_requested"] = args.preset, batch
     if "col_per_s" in m:
         log(f"{batch} columns: {m.get('wall_s', 0):.2f}s "
@@ -344,7 +350,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip shards already in --output/index.json")
     sw.add_argument("--metrics", help="write aggregated metrics JSON here")
     sw.add_argument("--mesh", action="store_true",
-                    help="shard over all visible devices (not ported yet)")
+                    help="shard the columns over every rank of the process group "
+                         "(one a GPU: torchrun --nproc-per-node N)")
     sw.add_argument("--output", "-o",
                     help="shard output DIRECTORY (npz shards + index.json)")
     sw.add_argument("--device", **device)
@@ -356,13 +363,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Run a command.  A route that is not ported yet ends the program
-    with its message (exit code 1)."""
+    """Run a command.  Under ``torchrun`` (its environment) each process
+    first starts its rank of the process group on the device of
+    ``--device`` (parallel.distributed.init_distributed); without it
+    nothing is started."""
+    from sos_rt_tpu_torch.parallel.distributed import init_distributed
+
     args = build_parser().parse_args(argv)
-    try:
-        args.fn(args)
-    except NotPortedError as e:
-        raise SystemExit(f"sos_rt_tpu_torch: not ported yet: {e}")
+    init_distributed(device=getattr(args, "device", None))
+    args.fn(args)
 
 
 if __name__ == "__main__":

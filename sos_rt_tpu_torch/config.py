@@ -31,12 +31,6 @@ MU_VERY_SMALL_THRESHOLD = 0.001  # very small µ → Taylor limit
 MU0_RESONANCE_TOL = 1e-4
 
 
-class NotPortedError(NotImplementedError):
-    """A route of the TPU package that this port does not run yet (meshes
-    and the layer-sharded solve).  Raised instead of falling back; see
-    ROADMAP.md for the order in which they come."""
-
-
 def full_precision_matmul() -> None:
     """Keep float32 products in full float32 (no TF32) on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False

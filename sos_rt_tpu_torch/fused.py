@@ -162,6 +162,15 @@ def layer_reaches_ground(scenes: Scene, grid: GridSpec) -> bool:
     return bool((idx_down == grid.nb_layers - 1).any())
 
 
+def goes_to_fused(scenes: Scene, grid: GridSpec, allow_small: bool) -> bool:
+    """The whole-batch handover of :func:`solve_batch_mega` to the fused
+    engine: the grid needs the small-µ machinery (``mega_supported`` false
+    without the ``allow_small`` grant), or some column's aerosol layer
+    reaches the bottom layer (:func:`layer_reaches_ground`)."""
+    return (not mk.mega_supported(grid, stencils_for(grid), allow_small=allow_small)
+            or layer_reaches_ground(scenes, grid))
+
+
 def coarse_problem(tables: PhaseTables, grid: GridSpec, device):
     """The predictor's 8×16 grid and the caller's tables subsampled to it
     (every (M-1)/7-th node, or the nearest nodes when 7 does not divide
@@ -422,13 +431,11 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     if i1 not in ("kernel", "host"):
         raise ValueError(f"unknown i1 mode {i1!r}; 'kernel' or 'host'")
     device = resolve_device(device)
-    stencils = stencils_for(grid)
     if resolve_stream(stream, grid, torch_dtype(opts.dtype)):
         ms.stream_ablate_flags(ablate)
     else:
         mk.ablate_flags(ablate)
-    to_fused = (not mk.mega_supported(grid, stencils, allow_small=allow_small)
-                or layer_reaches_ground(scenes, grid))
+    to_fused = goes_to_fused(scenes, grid, allow_small)
     if ablate and to_fused:
         raise ValueError("ablate flags act on the mega kernels; this batch goes to "
                          "the fused engine, which takes none")

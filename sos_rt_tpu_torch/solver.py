@@ -32,6 +32,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from sos_rt_tpu_torch.config import (GridSpec, Scene, SolverOptions,
@@ -132,13 +133,35 @@ def _ratio(in_cur, i_tot, nb_angles):
     return torch.maximum(r_toa, r_srf)
 
 
+def _model_columns(op, group, place: int, size: int):
+    """This rank's share of ``op``'s columns among the ``size`` ranks of
+    ``group`` — the columns [place·w, (place+1)·w), w = ⌈n/size⌉, zero-padded
+    to w — and the function that all-gathers every rank's (..., w) product
+    slices into the (..., n) product."""
+    n = op.shape[1]
+    w = -(-n // size)
+    lo, hi = min(place * w, n), min((place + 1) * w, n)
+    part = op.new_zeros((op.shape[0], w))
+    part[:, :hi - lo] = op[:, lo:hi]
+
+    def gather(y):
+        out = y.new_empty((size * y.shape[0],) + tuple(y.shape[1:]))
+        dist.all_gather_into_tensor(out, y.contiguous(), group=group)
+        out = torch.movedim(out.reshape((size,) + tuple(y.shape)), 0, -2)
+        return out.reshape(tuple(y.shape[:-1]) + (size * w,))[..., :n]
+    return part, gather
+
+
 def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
-                  opts: SolverOptions, stencils: SweepStencils = None):
+                  opts: SolverOptions, stencils: SweepStencils = None, model=None):
     """Shared setup of (B,)-batched ``scenes`` (fields as tensors on one
     device; P0 tables (2M,) shared or (B, 2M) per column): returns (i1
     (B, L, 2M), order_step, tau (B, L), idx_up (B,), idx_down (B,)), where
     ``order_step`` maps Iₙ₋₁ (B, L, 2M) to Iₙ.  The scene is taken in the
-    compute dtype ``opts.dtype`` from the start."""
+    compute dtype ``opts.dtype`` from the start.  ``model`` = (process group,
+    this rank's place, size): the group's ranks each compute their share of
+    the source operators' columns and all-gather Jₙ every order
+    (``solve_batch(mesh=, shard_tables=True)``)."""
     full_precision_matmul()
     if stencils is None:
         stencils = stencils_for(grid)
@@ -221,12 +244,15 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     # split-product precision mode (ops/precision.py); None keeps full
     # precision products
     mm = opts.mm if dtype == torch.float32 else None
-    if mm in ("bf16x3", "bf16x5"):
-        dot_atm = make_split_dot(a_atm, mm, dtype)
-        dot_aer = make_split_dot(a_aer, mm, dtype)
-    else:
-        dot_atm = lambda x: x @ a_atm
-        dot_aer = lambda x: x @ a_aer
+
+    def make_dot(op):
+        if model is not None:
+            op, gather = _model_columns(op, *model)
+        dot = (make_split_dot(op, mm, dtype) if mm in ("bf16x3", "bf16x5")
+               else lambda x: x @ op)
+        return dot if model is None else lambda x: gather(dot(x))
+
+    dot_atm, dot_aer = make_dot(a_atm), make_dot(a_aer)
     alb_atm, alb_aer = col(sc.alb_atm), col(sc.alb_aer)
     wa, wr = col(w_atm), col(w_aer)
     grd = sc.grd_alb[:, None]
@@ -302,16 +328,19 @@ def _columns(scenes: Scene, tables: PhaseTables, device):
 
 
 def _order_loop(scenes: Scene, tables: PhaseTables, grid: GridSpec,
-                opts: SolverOptions, stencils, save_rows, keep_orders: bool):
+                opts: SolverOptions, stencils, save_rows, keep_orders: bool,
+                model=None):
     """The order loop over a batch: a column accumulates only while its
     ratio is ≥ tol, up to ``max_orders`` orders; the loop ends when no
     column is active.  With ``keep_orders``, Iₙ (or its rows ``save_rows``)
     goes to slot n-1 of a (B, max_orders, ...) buffer while its column is
-    active, zeros otherwise, with the slot's validity."""
+    active, zeros otherwise, with the slot's validity.  ``model``: see
+    :func:`_setup_column`; the group's ranks hold equal fields after each
+    gather, so they take the same number of orders."""
     dtype = torch_dtype(opts.dtype)
     M, K = grid.nb_angles, int(opts.max_orders)
     i1, order_step, tau, idx_up, idx_down = _setup_column(scenes, tables, grid,
-                                                          opts, stencils)
+                                                          opts, stencils, model)
     B, device = i1.shape[0], i1.device
     tol = torch.tensor(opts.tol, dtype=dtype, device=device)
     if save_rows is None:

@@ -22,9 +22,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sos_rt_tpu_torch import metrics as _metrics
-from sos_rt_tpu_torch.config import NotPortedError, resolve_device, torch_dtype
+from sos_rt_tpu_torch.config import resolve_device, torch_dtype
 
 
 def build_sweep_batch(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
@@ -116,21 +117,33 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
     engine's.  It needs ``chunk > 0`` and ``out_dir`` (the per-order
     arrays leave only through the shards; ``ValueError`` otherwise).
 
-    ``mesh`` (multi-GPU) is not ported yet and raises ``NotPortedError``.
-    ``device`` defaults to CUDA.
+    ``mesh`` (a DeviceMesh of ``parallel.make_mesh``): every rank builds
+    the same batch and solves it sharded over the mesh's 'data' axis
+    (``parallel.solve_batch(mesh=)``, which sorts by the score, so ``sort``
+    is 'score'); ``n_devices`` in the metrics is the mesh's size.  Only the
+    mesh's first rank writes shards and ``index.json`` (and logs); the
+    others wait for it at a barrier before they read the finished sweep.
+    ``save_orders`` with a mesh solves unsharded on every rank, as in the
+    TPU package.  ``device`` defaults to CUDA (to the mesh's device with a
+    mesh).
     """
     from sos_rt_tpu_torch.fused import take_columns
     from sos_rt_tpu_torch.parallel import solve_batch
+    from sos_rt_tpu_torch.parallel.mesh import is_first_rank, mesh_axis, mesh_device
     from sos_rt_tpu_torch.solver import solve_batch_orders
 
     if save_orders and (chunk <= 0 or out_dir is None):
         raise ValueError("save_orders=True requires chunk > 0 and an out_dir "
                          "(the per-order arrays are written to the npz shards)")
+    writer, n_devices = True, 1
     if mesh is not None:
-        raise NotPortedError("mesh= (multi-GPU column sharding) is not "
-                             "ported yet; see ROADMAP.md")
+        mesh_axis(mesh, "data")         # a DeviceMesh with a 'data' axis
+        device, sort = mesh_device(mesh), "score"
+        writer, n_devices = is_first_rank(mesh), mesh.size()
     device = resolve_device(device)
-    log = log or (lambda msg: None)
+    log = (log if writer else None) or (lambda msg: None)
+    if mesh is not None and save_orders:
+        log("save_orders: solving unsharded on every rank; the mesh is not used")
 
     def solve(part, part_tbl):
         """→ (solution, extra per-column shard arrays)."""
@@ -141,7 +154,7 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
             return sol, {"orders_toa": to_np(orders[:, :, 0]),
                          "orders_surface": to_np(orders[:, :, 1]),
                          "order_valid": to_np(valid)}
-        sol = solve_batch(part, part_tbl, preset.grid, preset.opts,
+        sol = solve_batch(part, part_tbl, preset.grid, preset.opts, mesh=mesh,
                           engine=engine, outputs=outputs, buckets=buckets,
                           block_b=block_b, sort=sort, device=device)
         return _metrics.block_until_ready(sol), {}
@@ -150,12 +163,13 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
     if chunk <= 0 or out_dir is None:
         t0 = time.perf_counter()
         sol, _ = solve(scenes, tables)
-        m = _metrics.solution_metrics(sol, time.perf_counter() - t0)
+        m = _metrics.solution_metrics(sol, time.perf_counter() - t0, n_devices=n_devices)
         m["engine"] = engine
         m["outputs"] = outputs
         return m
 
-    os.makedirs(out_dir, exist_ok=True)
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
     index_path = os.path.join(out_dir, "index.json")
     # the spec pins everything that shapes a shard's physics/layout:
     # resuming into an out_dir written under a same-named but modified
@@ -193,17 +207,18 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
         dt = time.perf_counter() - t0
         wall += dt
         solved_cols += sl.stop - sl.start
-        # np.savez appends .npz if missing: keep the suffix on the temp
-        tmp = _shard_path(out_dir, i)[:-4] + ".tmp.npz"
-        np.savez_compressed(tmp, **_summary_arrays(sol), **extra)
-        os.replace(tmp, _shard_path(out_dir, i))
         done.add(i)
-        index = {"spec": spec, "n_chunks": n_chunks, "completed": sorted(done)}
-        tmp_idx = index_path + ".tmp"
-        with open(tmp_idx, "w") as f:
-            json.dump(index, f)
-        os.replace(tmp_idx, index_path)
-        cm = _metrics.solution_metrics(sol, dt)
+        if writer:
+            # np.savez appends .npz if missing: keep the suffix on the temp
+            tmp = _shard_path(out_dir, i)[:-4] + ".tmp.npz"
+            np.savez_compressed(tmp, **_summary_arrays(sol), **extra)
+            os.replace(tmp, _shard_path(out_dir, i))
+            index = {"spec": spec, "n_chunks": n_chunks, "completed": sorted(done)}
+            tmp_idx = index_path + ".tmp"
+            with open(tmp_idx, "w") as f:
+                json.dump(index, f)
+            os.replace(tmp_idx, index_path)
+        cm = _metrics.solution_metrics(sol, dt, n_devices=n_devices)
         log(f"shard {i + 1}/{n_chunks}: {cm['batch']} columns in "
             f"{dt:.2f}s ({cm.get('col_per_s', 0):,.0f} col/s), "
             f"orders max {cm['orders_max']}")
@@ -211,9 +226,11 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
         if stop_after_chunks and solved_now >= stop_after_chunks:
             break
 
+    if mesh is not None:
+        dist.barrier()          # the first rank has written every shard
     m: Dict[str, Any] = {"engine": "orders" if save_orders else engine,
                          "outputs": outputs, "n_chunks": n_chunks, "n_completed": len(done),
-                         "complete": len(done) == n_chunks}
+                         "complete": len(done) == n_chunks, "n_devices": n_devices}
     if len(done) == n_chunks:
         res = load_sweep(out_dir)
         n_tot = int(res["n_orders"].shape[0])

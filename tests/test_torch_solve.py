@@ -5,11 +5,11 @@ equal ``sos_rt_tpu.parallel.solve_batch(engine='reference')`` with equal
 order counts and rtol 1e-9 / atol 1e-11·scale — the contract of
 tests/test_megastream.py — for both surfaces, a ragged batch, an odd
 angle count and a canonical-like small-µ grid.  Also: summary rows equal
-full rows, results do not depend on the sort or the block size, the
-routes outside the port raise (the reference engine, the default, and the
-fused engine equal the mega engine, and the fused engine takes what the mega
-path cannot), and the package imports neither jax nor
-sos_rt_tpu.  (The comparisons with the JAX mega engine in float32 and
+full rows, results do not depend on the sort or the block size, every
+route runs (the reference engine, the default, and the fused engine equal
+the mega engine, the fused engine takes what the mega path cannot, and a
+world-size-1 gloo mesh equals the unsharded solve), and the package imports
+neither jax nor sos_rt_tpu.  (The comparisons with the JAX mega engine in float32 and
 with its order-count predictor are in tests/test_torch_jax_mega.py.)
 """
 import dataclasses
@@ -27,12 +27,13 @@ import torch
 from sos_rt_tpu.config import GridSpec as JGrid, SolverOptions as JOpts
 from sos_rt_tpu.parallel import solve_batch as j_solve_batch
 from sos_rt_tpu.parallel.mesh import mega_small_ok as j_mega_small_ok
-from sos_rt_tpu_torch import NotPortedError, SolverOptions, convert
+from sos_rt_tpu_torch import SolverOptions, convert
 from sos_rt_tpu_torch.fused import solve_batch_mega
 from sos_rt_tpu_torch.parallel import solve_batch
 from sos_rt_tpu_torch.parallel.mesh import mega_small_ok
 
-from torch_cases import assert_close_scaled, jax_scenes, jax_tables, port_inputs
+from torch_cases import (assert_close_scaled, jax_scenes, jax_tables, port_inputs,
+                         world_of_one)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRID = JGrid(56, 64)
@@ -144,11 +145,6 @@ def test_entry_points_need_cuda_or_cpu(tables56, monkeypatch):
     assert isinstance(SolverOptions(), SolverOptions)
 
 
-def _raises_not_ported(fn):
-    with pytest.raises(NotPortedError):
-        fn()
-
-
 def test_routes_outside_the_slice_raise(tables56):
     from sos_rt_tpu_torch.models import build_phase_tables
 
@@ -165,9 +161,18 @@ def test_routes_outside_the_slice_raise(tables56):
                             atol_scale=1e-11)
     with pytest.raises(ValueError, match="summary"):
         solve_batch(*port, outputs="summary", device="cpu")
-    _raises_not_ported(lambda: solve_batch(*port, mesh=object(), device="cpu"))
-    _raises_not_ported(lambda: solve_batch(*port, engine="fused", mesh=object(),
-                                           device="cpu"))
+    # the mesh is ported: a world-size-1 gloo mesh runs every engine and
+    # equals the unsharded solve (sort="score", as the mesh route sorts);
+    # anything but a DeviceMesh is refused
+    with world_of_one() as mesh:
+        for engine in ("mega", "fused", "reference"):
+            plain = solve_batch(*port, engine=engine, sort="score", device="cpu")
+            meshed = solve_batch(*port, engine=engine, mesh=mesh)
+            assert torch.equal(meshed.n_orders, plain.n_orders)
+            assert torch.equal(meshed.i_total, plain.i_total), engine
+    for engine in ("mega", "fused"):
+        with pytest.raises((TypeError, ValueError), match="DeviceMesh"):
+            solve_batch(*port, engine=engine, mesh=object(), device="cpu")
     # the resident execution is ported: it runs, and equals the streamed one
     resident = solve_batch_mega(*port, stream=False, device="cpu")
     streamed = solve_batch_mega(*port, stream=True, device="cpu")

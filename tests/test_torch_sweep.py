@@ -7,7 +7,7 @@ per-column µ0 tables; the port's batch carried to the JAX package as numpy
 and solved there by ``solve_batch(engine='mega')`` in float64 gives the
 same rows (rtol 1e-9, the engines' contract); ``save_orders`` shards equal
 the JAX package's; and the ``sweep`` / ``list`` commands of ``python -m
-sos_rt_tpu_torch``, with the routes that still exit as not ported.
+sos_rt_tpu_torch``, with ``--mesh`` on a world-size-1 gloo mesh.
 """
 import dataclasses
 import json
@@ -22,14 +22,14 @@ from sos_rt_tpu.config import GridSpec as JGrid, Scene as JScene, SolverOptions 
 from sos_rt_tpu.parallel import solve_batch as j_solve_batch
 from sos_rt_tpu.solver import PhaseTables as JTables
 from sos_rt_tpu.sweep import load_sweep as j_load_sweep
-from sos_rt_tpu_torch import NotPortedError, metrics, presets
+from sos_rt_tpu_torch import metrics, presets
 from sos_rt_tpu_torch.cli import main
 from sos_rt_tpu_torch.config import SCENE_FIELDS, GridSpec, SolverOptions
 from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.parallel import solve_batch
 from sos_rt_tpu_torch.sweep import build_sweep_batch, load_sweep, run_sweep
 
-from torch_cases import assert_close_scaled
+from torch_cases import assert_close_scaled, world_of_one
 
 
 def _small(dtype="float32", grid=GridSpec(nb_angles=32, nb_layers=48)):
@@ -75,8 +75,8 @@ def test_chunked_sweep_resume_and_spec_check(small, tmp_path):
     kw = dict(seed=1, mu0_pool=2, chunk=4, out_dir=out, device="cpu", log=logs.append)
     part = run_sweep(small, 10, stop_after_chunks=1, **kw)      # "killed" after one
     assert part == {"engine": "mega", "outputs": "summary", "n_chunks": 3,
-                    "n_completed": 1, "complete": False, "wall_s": part["wall_s"],
-                    "col_per_s": part["col_per_s"]}
+                    "n_completed": 1, "complete": False, "n_devices": 1,
+                    "wall_s": part["wall_s"], "col_per_s": part["col_per_s"]}
     with pytest.raises(ValueError, match="incomplete"):
         load_sweep(out)
     first = os.path.getmtime(os.path.join(out, "shard_00000.npz"))
@@ -130,9 +130,28 @@ def test_unchunked_sweep_returns_metrics(small):
 
 
 def test_routes_of_the_sweep_not_ported_yet(small, tmp_path):
-    with pytest.raises(NotPortedError, match="mesh"):
+    """The sweep's mesh routes, which raised until the mesh was ported: on a
+    world-size-1 gloo mesh ``run_sweep`` reports ``n_devices`` equal to the
+    mesh's size and equals the unmeshed sweep sorted by the score, chunked
+    or not; ``save_orders`` with a mesh solves unsharded and writes the same
+    shards; anything but a DeviceMesh is refused."""
+    with world_of_one() as mesh:
+        m = run_sweep(small, 4, mu0_pool=2, mesh=mesh, device="cpu")
+        assert m["n_devices"] == mesh.size() == 1 and m["n_converged"] == 4
+        for name, kw in (("mesh", dict(mesh=mesh)), ("plain", dict(sort="score")),
+                         ("orders_mesh", dict(mesh=mesh, save_orders=True)),
+                         ("orders", dict(save_orders=True))):
+            m = run_sweep(small, 4, mu0_pool=2, chunk=2, out_dir=str(tmp_path / name),
+                          device="cpu", **kw)
+            assert m["complete"] and m["n_devices"] == 1
+    for a, b in (("mesh", "plain"), ("orders_mesh", "orders")):
+        got, want = load_sweep(str(tmp_path / a)), load_sweep(str(tmp_path / b))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    with pytest.raises((TypeError, ValueError), match="DeviceMesh"):
         run_sweep(small, 4, mesh=object(), device="cpu")
-    with pytest.raises(NotPortedError, match="mesh"):
+    with pytest.raises((TypeError, ValueError), match="DeviceMesh"):
         run_sweep(small, 4, chunk=2, out_dir=str(tmp_path / "o"), save_orders=True,
                   mesh=object(), device="cpu")
     # save_orders writes its arrays only to shards, as in the TPU package
@@ -276,18 +295,25 @@ def test_list_cmd(capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["sweep", "--mesh", "--device", "cpu"], "mesh"),
+    (["sweep", "--mesh", "--batch", "4", "--mu0-pool", "2", "--device", "cpu"], "mesh"),
     (["sweep", "--engine", "reference", "--mesh", "--batch", "4", "--device", "cpu"],
      "mesh"),
 ])
 def test_commands_not_ported_exit_with_the_message(small, argv, what, capsys,
                                                    tmp_path, monkeypatch):
+    """``sweep --mesh``, which exited "not ported yet" until the mesh was
+    ported, runs on a world-size-1 gloo mesh: it logs the mesh, reports
+    ``n_devices`` 1 and, without ``-o``, writes nothing."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as e:
+    try:
         main(argv)
-    assert "not ported yet" in str(e.value) and what in str(e.value)
-    assert e.value.code not in (0, None)
-    assert capsys.readouterr().out == ""
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    out, err = capsys.readouterr()
+    m = json.loads(out.strip().splitlines()[-1])["sweep_metrics"]
+    assert m["n_devices"] == 1 and m["batch"] == 4 and m["n_converged"] == 4
+    assert f"[sos] {what} of 1 rank(s)" in err
     assert not os.listdir(tmp_path)
 
 
@@ -345,7 +371,7 @@ def test_module_entry_point_lists():
     out = subprocess.run([sys.executable, "-m", "sos_rt_tpu_torch", "list"], cwd=repo,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "presets:" in out.stdout
-    bad = subprocess.run([sys.executable, "-m", "sos_rt_tpu_torch", "sweep", "--mesh",
-                          "--device", "cpu"], cwd=repo, capture_output=True,
-                         text=True, timeout=120)
-    assert bad.returncode != 0 and "not ported yet" in bad.stderr
+    # --mesh without --device needs the card: no silent fall-back to gloo
+    bad = subprocess.run([sys.executable, "-m", "sos_rt_tpu_torch", "sweep", "--mesh"],
+                         cwd=repo, capture_output=True, text=True, timeout=120)
+    assert bad.returncode != 0 and "device='cpu'" in bad.stderr

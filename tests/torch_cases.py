@@ -4,7 +4,12 @@ The same batch, made with numpy, goes through the JAX package and the
 port (``sos_rt_tpu_torch.convert`` carries it across), so each test holds
 the port against the JAX package on identical inputs.
 """
+import contextlib
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,3 +58,81 @@ def assert_close_scaled(got, want, rtol, atol_scale):
     got = np.asarray(got)
     scale = float(np.max(np.abs(want)))
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol_scale * scale)
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """A world-size-1 gloo mesh in this process (``make_mesh`` starts the
+    process group), the group destroyed on exit."""
+    import torch.distributed as dist
+
+    from sos_rt_tpu_torch.parallel import make_mesh
+
+    try:
+        yield make_mesh(device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# every rank's script starts with this: one thread (the ranks share the
+# test worker's cores), its rank of a gloo group on the parent's file store
+RANK_PRELUDE = """
+import json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from sos_rt_tpu_torch.parallel.distributed import init_distributed
+assert init_distributed(cfg["store"], cfg["world"], cfg["rank"], device="cpu")
+OUT = {}
+"""
+# ... and ends with this: it imported neither JAX nor the JAX package, and
+# writes OUT to its own npz
+RANK_EPILOGUE = """
+assert "jax" not in sys.modules, "a rank imported jax"
+assert not [m for m in sys.modules if m == "sos_rt_tpu" or m.startswith("sos_rt_tpu.")]
+np.savez(cfg["out"], **OUT)
+torch.distributed.destroy_process_group()
+print("RANK_OK", cfg["rank"])
+"""
+
+
+def start_ranks(tmp_path, nproc: int, body: str, **cfg):
+    """Start ``nproc`` processes that run ``body`` as the ranks of one gloo
+    group (a ``file://`` store under ``tmp_path``, no port); each sees
+    ``cfg`` (with its ``rank``, ``world``, ``out``) and fills ``OUT``.
+    Returns the processes, for :func:`wait_ranks`."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    src = RANK_PRELUDE + body + RANK_EPILOGUE
+    procs = []
+    for rank in range(nproc):
+        c = dict(cfg, rank=rank, world=nproc, store=f"file://{tmp_path / 'store'}",
+                 out=str(tmp_path / f"rank{rank}.npz"))
+        procs.append(subprocess.Popen([sys.executable, "-c", src, json.dumps(c)], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    return procs
+
+
+def wait_ranks(procs, tmp_path, timeout: float = 240.0):
+    """Wait for every rank (each within ``timeout`` s: a hung rendezvous
+    fails here, its ranks killed); returns each rank's OUT as a dict."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and f"RANK_OK {rank}" in log, f"rank {rank}:\n{log}"
+    outs = []
+    for rank in range(len(procs)):
+        with np.load(tmp_path / f"rank{rank}.npz") as z:
+            outs.append({k: z[k] for k in z.files})
+    return outs
