@@ -9,7 +9,9 @@ Phases, one JSON line each on stdout:
                  versions, the seconds the kernels took to build, ptxas's
                  registers, spills and shared memory of each kernel (by
                  name: the four tensor-core kernels of passA/passI, with
-                 their dynamic shared memory, the stage kernels of passB
+                 their dynamic shared memory, the two of the split-mode
+                 source (fused_source.cu, the same mainloop), the stage
+                 kernels of passB
                  and up_sweep_smooth, and the down sweep's float32 and
                  float64 builds), and sos_mega's registers and
                  spills per build: the SIMT builds held equal to
@@ -107,7 +109,9 @@ Phases, one JSON line each on stdout:
                  501×800 grid, B=64: float32 with full-precision products
                  (mm=None), col/s of a second call (the first's wall
                  beside it), orders and peak memory, 8 columns against
-                 the float64 reference solve (as in ``canonical``); float64
+                 the float64 reference solve (as in ``canonical``); the same
+                 8 columns in bf16x3 (the source kernel once an order, no
+                 other launch) against it too; float64
                  on the whole batch against solve_batch(engine='mega') in
                  float64 (equal order counts, rtol 1e-9); the sequential
                  scans on 8 columns, timed beside the associative ones.
@@ -155,7 +159,10 @@ Phases, one JSON line each on stdout:
                  unsharded solve_batch(sort='score') to the bit, with the
                  same launches, and both col/s; 8 canonical columns in
                  float64 with shard_tables=True (reference engine) against
-                 the unsharded solve (equal order counts, rtol 1e-12);
+                 the unsharded solve (equal order counts, rtol 1e-12), and
+                 in bf16x3, where the route keeps the plain split products
+                 (no launch; against the float64 solve as in
+                 ``canonical``);
                  solve_batch_multihost on the fwc batch to the bit; then,
                  the group destroyed, ``python -m sos_rt_tpu_torch sweep
                  --preset fwc_sweep --batch 16384 --chunk 4096 --mesh`` in
@@ -186,8 +193,14 @@ Phases, one JSON line each on stdout:
                  column's polyfit band covers the grid's small-µ columns
                  (mega_small_ok is false), so the whole batch takes the
                  fused engine; the launch counts (each sweep kernel once an
-                 order, no mega kernel); 8 columns against the float64 fused
-                 solve on the card; each sweep kernel at this block against
+                 order, the source kernel too, no mega kernel); 8 columns
+                 against the float64 fused solve on the card; the same solve
+                 with the plain split-product source within MEGA_BATCH_LIMITS
+                 of it; the source kernel (sos_fused_source) at this block
+                 against fused_source_plain in bf16x3 and bf16x5
+                 (F32_KERNEL_TOL), timed beside it, its bound and one
+                 torch.mm of its bf16 passes (library_ms); each sweep kernel
+                 at this block against
                  its plain version (down_sweep to the bit), timed beside it,
                  its bound and its share of the bound, down_sweep also
                  beside a PyTorch copy of its source (copy_ms: the same
@@ -249,7 +262,9 @@ Phases, one JSON line each on stdout:
                  orders, B=128) through its main(), with its launch counts.
 23. ``trace``    tools/profile.py on the card: the reference engine's
                  canonical column (its --canonical), the fused_canonical
-                 batch, the canonical batch (mega, streamed), the 64×128
+                 batch, 8 canonical columns through the reference engine in
+                 bf16x3 (in both, sos.source_jn runs the source kernel and no
+                 other), the canonical batch (mega, streamed), the 64×128
                  sweep batch (mega, resident) and the sweep command once:
                  device ms by scope (each present on the reference and
                  fused engines) and by kernel, the window's host ms and
@@ -263,7 +278,7 @@ one card with --sort score: the shards within MEGA_BATCH_LIMITS, both
 commands' metrics (n_devices the number of cards) and walls.
 
 Then the ``{"kernels": [...]}`` line (eight kernels, and sos_mega_i1in
-after mega_call; passA and passB with their ablated build under
+after mega_call, and fused_source after the sweep kernels; passA and passB with their ablated build under
 ``ablated``: its source, its launches in ``ablate_stream``'s tool run, its
 largest difference from the plain versions at the canonical block and each
 variant's ms there; max_abs_err over both
@@ -302,10 +317,14 @@ REPLACES = {
     "up_sweep_smooth": "sos_rt_tpu/ops/pallas_sweeps.py:167",
     "micro_ops": "tools/micro_ops.py:28",
     "micro_pass": "tools/micro_pass.py:22",
+    # not a Pallas kernel: the JAX package's split products (make_split_dot)
+    # of sos_rt_tpu/fused.py:663-668 and sos_rt_tpu/solver.py:226-232
+    "fused_source": "sos_rt_tpu/ops/precision.py:59",
 }
 SOURCE = "sos_rt_tpu_torch/csrc/megastream.cu"
 MEGA_SOURCE = "sos_rt_tpu_torch/csrc/megakernel.cu"
 FUSED_SOURCE = "sos_rt_tpu_torch/csrc/fused_sweeps.cu"
+SPLIT_SOURCE = "sos_rt_tpu_torch/csrc/fused_source.cu"
 MICRO_SOURCE = "sos_rt_tpu_torch/csrc/micro.cu"
 STREAM_ABLATE_SOURCE = "sos_rt_tpu_torch/csrc/megastream_ablate.cu"
 # the least shared loads and stores (LDS, STS) that the rep (pass) loop of
@@ -488,7 +507,7 @@ def launch_counts() -> dict:
     builds (``passA_ablate``, ``passB_ablate``)."""
     from sos_rt_tpu_torch.ops import megastream as ms
 
-    counts = {k.__name__: k.launches for k in ms.ALL_KERNELS}
+    counts = {k.__name__: k.launches for k in ms.COUNTED_KERNELS}
     counts.update({f"{k.__name__}_tc": k.tc_launches for k in ms.TC_KERNELS})
     counts.update({f"{k.__name__}_ablate": k.ablate_launches for k in ms.ABLATE_KERNELS})
     counts["mega_call_tc"] = ms.mega_call.tc_launches
@@ -717,11 +736,14 @@ def sweep_block_times(calls, B: int, L: int, M: int, itemsize: int, jn_down,
     return out
 
 
-def fused_launches_ok(launches: dict, n_max: int, phase: str):
+def fused_launches_ok(launches: dict, n_max: int, phase: str, split: bool = False):
     """Fail unless the run went through the fused engine alone: each sweep
-    kernel once per order after the first, no mega kernel."""
+    kernel once per order after the first, no mega kernel, and in the split
+    modes (``split``) the source kernel once per order after the first."""
     want = {k: 0 for k in launches}
     want["down_sweep"] = want["up_sweep_smooth"] = n_max - 1
+    if split:
+        want["fused_source"] = n_max - 1
     if launches != want:
         fail(f"{phase}: launches {launches}, expected {want}")
 
@@ -756,11 +778,14 @@ def mega_build(mangled: str) -> tuple:
 
 
 def tc_kernel_label(mangled: str) -> str:
-    """'passA bf16x3' for tc::quad_mma<1, LoadFields<float>, ...>, etc."""
+    """'passA bf16x3' for tc::quad_mma<1, LoadFields<float>, ...>, 'passI',
+    'fused_source' for LoadSurfaceExp, LoadFieldRows."""
     import re
 
     mode = {"1": "bf16x3", "2": "bf16x5"}[re.search(r"quad_mmaILi(\d)E", mangled).group(1)]
-    return ("passA " if "LoadFields" in mangled else "passI ") + mode
+    user = ("fused_source " if "LoadFieldRows" in mangled else
+            "passA " if "LoadFields" in mangled else "passI ")
+    return user + mode
 
 
 def down_kernel_label(mangled: str):
@@ -808,6 +833,16 @@ def phase_card():
                       cuda_build._lib_path("megastream") + ".log") if "quad_mma" in name]
     if len(tc_kernels) != 4:
         fail(f"megastream.cu built {len(tc_kernels)} tensor-core kernels, not 4")
+    # the split-mode source kernel's two builds (bf16x3, bf16x5) on the same
+    # mainloop
+    src_kernels = [{"kernel": tc_kernel_label(name), "registers": regs,
+                    "spill_store_bytes": spill, "static_smem_bytes": smem,
+                    "dynamic_smem_bytes": tc_smem}
+                   for name, regs, spill, smem in ptxas_entries(
+                       cuda_build._lib_path("fused_source") + ".log") if "quad_mma" in name]
+    if sorted(k["kernel"] for k in src_kernels) != ["fused_source bf16x3",
+                                                      "fused_source bf16x5"]:
+        fail(f"fused_source.cu built {[k['kernel'] for k in src_kernels]}")
     # the stage kernels of passB (csrc/pass_b_split.cuh) and up_sweep_smooth
     stages = [{"kernel": split_kernel_label(name), "registers": regs,
                "spill_store_bytes": spill, "static_smem_bytes": smem}
@@ -866,7 +901,7 @@ def phase_card():
           "python": sys.version.split()[0], "build_s": round(build_s, 3),
           "compiled": sorted(built),
           "build_s_by_source": {k: round(v, 1) for k, v in built.items()},
-          "tensor_core_kernels": tc_kernels,
+          "tensor_core_kernels": tc_kernels, "fused_source_kernels": src_kernels,
           "stage_kernels": stages, "down_sweep_kernels": down,
           "sos_mega_ptxas": {f"{d} {m} {nt}": v for (d, m, nt), v in sorted(mega.items())},
           "sos_mega_i1in_ptxas": {f"{d} {m} {nt}": v
@@ -1579,17 +1614,99 @@ def phase_fused_f64(device):
     emit(out)
 
 
+def source_bound_ms(rows: int, m: int, wcopy, mm: str):
+    """Least time (ms) for one split-mode source call on an H100: X in and
+    J_n out (rows x 2M float32 each), the bf16 operator copy and the
+    per-column inputs over the memory rate, against the split passes' bf16
+    operations (rows x 2M x 4M products a pass) over the dense bf16 rate."""
+    nbytes = 2 * rows * 2 * m * 4 + wcopy.numel() * 2
+    flops = 2 * rows * 2 * m * 4 * m * SPLIT_PASSES[mm]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS["bf16"] * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def source_library_ms(dn, up, wcopy, mm: str, reps: int = 5):
+    """The source's products as one cuBLAS call: the split passes side by
+    side, X's parts [x1 | x2 | x1 (| x3 | x2)] (rows, passes x 2M) bf16
+    against [hi; hi; lo (; hi; lo)] (passes x 2M, 4M), one torch.mm with a
+    float32 result (no split, no mixing).  Returns (ms or None, what)."""
+    import torch
+
+    from sos_rt_tpu_torch.ops.precision import split_operand
+
+    m, mp, dev = dn.shape[-1], wcopy.shape[1] // 4, dn.device
+    x = torch.cat([dn, up], dim=2).reshape(-1, 2 * m)
+    xs = [p.to(torch.bfloat16) for p in split_operand(x, mm, torch.float32)]
+    k = torch.cat([torch.arange(m), mp + torch.arange(m)]).to(dev)
+    rows = torch.cat([q * mp + torch.arange(m) for q in range(4)]).to(dev)
+    hi, lo = (wcopy[i][rows][:, k].T.contiguous() for i in range(2))
+    terms = [(0, hi), (1, hi), (0, lo)] + ([(2, hi), (1, lo)] if mm == "bf16x5" else [])
+    xcat = torch.cat([xs[i] for i, _ in terms], dim=1)
+    wcat = torch.cat([w for _, w in terms], dim=0)
+    what = (f"one torch.mm of ({xcat.shape[0]} x {xcat.shape[1]}) x ({wcat.shape[0]} x "
+            f"{wcat.shape[1]}) bf16, float32 out")
+    try:
+        torch.mm(xcat[:8], wcat, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        why = str(e).splitlines()[0][:160]
+        return None, f"torch {torch.__version__}: torch.mm takes no float32 out_dtype ({why})"
+    return timed(lambda: torch.mm(xcat, wcat, out_dtype=torch.float32), reps), what
+
+
+def fused_source_block(fb, launches: int):
+    """The split-mode source kernel at the fused batch's block: against
+    fused_source_plain in both modes (F32_KERNEL_TOL of scale), then in the
+    batch's mode timed on second_order_source beside the plain version (the
+    twelve float32 cuBLAS products and the mixing), its bound and the
+    library call.  Returns its kernels-line entry."""
+    import torch
+
+    from sos_rt_tpu_torch.ops import fused_source as fsrc
+
+    m = fb.M
+    dn, up = fb.i1[:, :, :m], fb.i1[:, :, m:]
+    rel, absd = {}, 0.0
+    for mm in ("bf16x3", "bf16x5"):
+        got = fsrc.fused_source(dn, up, fb.wcopy, fb.cols, mm)
+        torch.cuda.synchronize()
+        want = fsrc.fused_source_plain(dn, up, fb.wcopy, fb.cols, mm)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"fused_source {mm}: non-finite values")
+        rel[mm] = rel_err(got, want)
+        absd = max(absd, float((got - want).abs().max()))
+        if not rel[mm] <= F32_KERNEL_TOL:
+            fail(f"fused_source {mm} at the fused canonical block: rel err {rel[mm]:.3e} "
+                 f"> {F32_KERNEL_TOL}")
+        del got, want
+    bms, by = source_bound_ms(fb.B * fb.L, m, fb.wcopy, fb.mm)
+    lib_ms, lib_what = source_library_ms(dn, up, fb.wcopy, fb.mm)
+    return {"name": "fused_source", "route": "cuda", "source": SPLIT_SOURCE,
+            "replaces": REPLACES["fused_source"],
+            "note": "not a Pallas kernel: the JAX package's split products",
+            "launches": launches, "max_abs_err": absd, "max_rel_err": rel,
+            "ms": timed(lambda: second_order_source(fb), 5),
+            "plain_ms": timed(lambda: fsrc.fused_source_plain(dn, up, fb.wcopy, fb.cols,
+                                                              fb.mm), 2),
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "library": lib_what,
+            "block_shape": [fb.B, fb.L, m], "mm": fb.mm}
+
+
 def phase_fused_canonical(device, sweep_abs):
     """The fused engine's path at full width.  Returns the kernels-line
-    entries of the two sweep kernels."""
+    entries of the two sweep kernels and of the source kernel."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from unittest import mock
+
+    from sos_rt_tpu_torch import fused
     from sos_rt_tpu_torch.config import SolverOptions
     from sos_rt_tpu_torch.fused import FusedBatch, take_columns, to_summary
     from sos_rt_tpu_torch.metrics import solution_metrics
+    from sos_rt_tpu_torch.ops.fused_source import fused_source_plain
     from sos_rt_tpu_torch.parallel import solve_batch
     from sos_rt_tpu_torch.parallel.mesh import mega_small_ok
     from sos_rt_tpu_torch.presets import get_preset
@@ -1612,7 +1729,7 @@ def phase_fused_canonical(device, sweep_abs):
         scenes, tables[torch.float32], grid, opts, engine="mega", outputs="summary",
         device=device))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    fused_launches_ok(launches, int(sol.n_orders.max()), "fused_canonical")
+    fused_launches_ok(launches, int(sol.n_orders.max()), "fused_canonical", split=True)
     if not (bool(torch.isfinite(sol.i_toa).all())
             and bool(torch.isfinite(sol.i_surface).all())):
         fail("fused_canonical summary rows are not finite")
@@ -1625,6 +1742,19 @@ def phase_fused_canonical(device, sweep_abs):
                                  SolverOptions(surface="lambertian", dtype="float64"),
                                  engine="fused", device=device))
     f64_check = f32_vs_f64(sol, ref, sub, "fused_canonical")
+    # the same solve with the plain source (the split products), against the
+    # kernel's: two whole float32 loops, MEGA_BATCH_LIMITS
+    with mock.patch.object(fused, "fused_source", fused_source_plain):
+        plain_wall, plain_sol, plain_launches = timed_solve(lambda: solve_batch(
+            scenes, tables[torch.float32], grid, opts, engine="mega", outputs="summary",
+            device=device))
+    if plain_launches["fused_source"]:
+        fail(f"fused_canonical: the plain-source solve launched {plain_launches}")
+    vs_plain, _ = loops_within_limits(sol.n_orders, plain_sol.n_orders,
+                                      (sol.i_toa, sol.i_surface),
+                                      (plain_sol.i_toa, plain_sol.i_surface),
+                                      "fused_canonical kernel source vs plain source")
+    vs_plain["plain_source_col_per_s"] = B / plain_wall
 
     # each sweep kernel at this run's block (the whole batch)
     fb = FusedBatch(scenes, tables[torch.float32], grid, opts, device)
@@ -1635,16 +1765,17 @@ def phase_fused_canonical(device, sweep_abs):
     times = sweep_block_times(calls, B, L, M, 4, jn[:, :, :M])
     # up_sweep_smooth's time split into its three kernels
     up_stages = device_ms_by_kernel(calls["up_sweep_smooth"][0], SPLIT_KERNELS[3:])
+    source = fused_source_block(fb, launches["fused_source"])
     emit({"phase": "fused_canonical", "grid": [M, L], "batch": B, "dtype": "float32",
           "mm": "bf16x3", "tau_star_atm": 0.044, "entered_as": "engine='mega'",
           "mega_small_ok": False, "metrics": solution_metrics(sol, wall_s=wall),
           "launches": launches, "f64_check": f64_check, "peak_memory_gb": peak_gb,
-          "block_shape": [B, L, M], "rel_err": rel, "block": times,
-          "up_sweep_stages_ms": up_stages})
+          "kernel_vs_plain_source": vs_plain, "block_shape": [B, L, M], "rel_err": rel,
+          "block": times, "up_sweep_stages_ms": up_stages, "fused_source": source})
     return [{"name": name, "route": "cuda", "source": FUSED_SOURCE,
              "replaces": REPLACES[name], "launches": launches[name],
              "max_abs_err": max(absd[name], sweep_abs[name]), "max_rel_err": rel[name],
-             **times[name], "library_ms": None} for name in calls]
+             **times[name], "library_ms": None} for name in calls] + [source]
 
 
 def phase_fused_sweep(device):
@@ -1801,6 +1932,19 @@ def phase_reference(device):
                                              "reference")
     del sol32
     torch.cuda.empty_cache()
+
+    # the same 8 columns in bf16x3: the source kernel once an order
+    o3 = dataclasses.replace(opts["float32"], mm="bf16x3")
+    wall3, sol3, launches3 = timed_solve(lambda: solve(s8, tables[torch.float32], o3))
+    want = {k: 0 for k in launches3}
+    want["fused_source"] = int(sol3.n_orders.max()) - 1
+    if launches3 != want:
+        fail(f"reference bf16x3: launches {launches3}, expected {want}")
+    out["bf16x3_8"] = {"wall_s": wall3, "launches": {"fused_source": want["fused_source"]},
+                       "f64_check": f32_vs_f64(to_summary(sol3), to_summary(ref8),
+                                               torch.arange(8, device=device),
+                                               "reference bf16x3")}
+    del sol3
 
     # float64, the whole batch, against the mega engine on the card
     torch.cuda.reset_peak_memory_stats()
@@ -2454,7 +2598,7 @@ def phase_mesh(device):
 
     from sos_rt_tpu_torch import cli
     from sos_rt_tpu_torch.config import SolverOptions
-    from sos_rt_tpu_torch.fused import take_columns
+    from sos_rt_tpu_torch.fused import take_columns, to_summary
     from sos_rt_tpu_torch.parallel import make_mesh, solve_batch
     from sos_rt_tpu_torch.parallel.distributed import solve_batch_multihost
     from sos_rt_tpu_torch.sweep import load_sweep
@@ -2505,6 +2649,18 @@ def phase_mesh(device):
     out["cases"]["reference_shard_tables"] = {
         "batch": 8, "n_orders": tp.n_orders.tolist(),
         "rel_err": same_solutions(tp, plain, 1e-12, "mesh reference_shard_tables")}
+    # in bf16x3 each rank holds only some of the operators' columns: the
+    # route keeps the plain split products, no source kernel
+    _, _, t32 = canonical_batch(device, 8, torch.float32)
+    _, tp3, launches3 = timed_solve(lambda: solve_batch(
+        s8, t32, grid, f32, engine="reference", shard_tables=True, mesh=mesh))
+    if any(launches3.values()):
+        fail(f"mesh reference_shard_tables bf16x3: launches {launches3}")
+    out["cases"]["reference_shard_tables_bf16x3"] = {
+        "batch": 8, "source": "split products (ops/precision.py), no kernel",
+        "f64_check": f32_vs_f64(to_summary(tp3), to_summary(plain),
+                                torch.arange(8, device=device),
+                                "mesh reference_shard_tables bf16x3")}
 
     # each rank solves the columns it holds
     wall, local, launches = timed_solve(lambda: solve_batch_multihost(
@@ -3143,7 +3299,8 @@ def phase_ablate_stream(device):
         want = 1 + (0 if {"nosrc", "nopassA"} & set(ab.split(",")) else STREAM_ABLATE_ORDERS - 1)
         if products != want:
             fail(f"ablate_stream {ab}: the profiler saw {products} product launches, not "
-                 f"{want} (passI and each passA with its product)")
+                 f"{want} (passI and each passA with its product; launches without a "
+                 f"device record: {res['lost_launches'][ab]})")
     emit({"phase": "ablate_stream", "small_block_rel_err": small,
           "canonical_block_rel_err": big_rel, "canonical_block_ms": block_ms,
           "loops": loops, "loop_orders": STREAM_LOOP_ORDERS, "limits": MEGA_BATCH_LIMITS,
@@ -3189,6 +3346,11 @@ def phase_trace(device):
     paths["fused_canonical"] = keep(profile.trace(lambda: solve_batch(
         fscenes, t32, hg.grid, opts, engine="mega", outputs="summary", device=device),
         out, "fused_canonical", device))
+    # the reference engine on 8 of the canonical columns in bf16x3
+    rscenes = random_scenes(hg, 8, device, np.random.default_rng(SEED))
+    paths["reference_bf16x3"] = keep(profile.trace(lambda: solve_batch(
+        rscenes, t32, hg.grid, opts, engine="reference", device=device), out,
+        "reference_bf16x3", device))
     # the canonical batch (mega, streamed)
     cscenes = random_scenes(hg, 256, device, np.random.default_rng(SEED))
     paths["canonical"] = keep(profile.trace(lambda: solve_batch(
@@ -3208,6 +3370,13 @@ def phase_trace(device):
     for name, kern in (("canonical", "tc::quad_mma"), ("fwc_sweep", "mega_kernel")):
         if not any(kern in k for k in paths[name]["kernels"]):
             fail(f"trace {name}: no {kern} kernel in {list(paths[name]['kernels'])}")
+    # in the split modes the source scope runs the source kernel and no
+    # cuBLAS product
+    for name in ("fused_canonical", "reference_bf16x3"):
+        src = paths[name]["scopes"]["sos.source_jn"]
+        if set(src["kernels"]) != {"sos::tc::quad_mma"}:
+            fail(f"trace {name}: sos.source_jn ran {src['kernels']}, not the source "
+                 "kernel alone")
     # the sweep command once (its phase ran it before), and beside it the
     # route's layer_reaches_ground on one chunk's scenes (one sync a solve)
     sweep_dir = os.path.join(out, "sweep_cli")
@@ -3275,7 +3444,7 @@ def main(argv=None) -> int:
     sweeps = phase_fused_canonical(device, sweep_abs)
     fused_abs = phase_fused_sweep(device)
     for k in sweeps:         # the largest difference over every block tried
-        k["max_abs_err"] = max(k["max_abs_err"], fused_abs[k["name"]])
+        k["max_abs_err"] = max(k["max_abs_err"], fused_abs.get(k["name"], 0.0))
     micro_entries = [phase_micro_ops(device), phase_micro_pass(device)]
     phase_ablate(device)
     ablated = phase_ablate_stream(device)

@@ -56,6 +56,14 @@
 //   (each CTA reads its X rows and its operator rows once a k-tile): a
 //   32-angle tile, which pulls X twice as often, was slower, and so were
 //   two block sets in flight, which spill at 255 registers (PERF.md).
+// - The fused and reference engines' split-mode J_n source (fused_source.cu)
+//   takes the same mainloop with its own loader and epilogue: LoadFieldRows
+//   copies X = [I_dn | I_up] from rows whose stride (M or 2M floats) is no
+//   multiple of 4, one float a cp.async, zeros in the pad columns; and it
+//   splits x as make_split_dot does (ops/precision.py: x1 ties away from
+//   zero by integer masking), not round half to even.  Both choices sit
+//   behind `if constexpr` on the loader's type, so passA's and passI's code
+//   is what it was.
 // - The epilogue stages the four quads' accumulators through shared memory
 //   (the ring is free by then), then runs the epilogue functor (EpiSource,
 //   EpiFirstOrder) unchanged with consecutive threads on consecutive angles:
@@ -86,9 +94,45 @@ constexpr int ROWS_AT = STAGES * STAGE > E_BYTES ? STAGES * STAGE : E_BYTES;
 // core-matrix strides of a W part (bytes): k-adjacent, row-group-adjacent
 constexpr int LBO = 128, SBO = (BK / 8) * 128;
 
+// X = [I_dn | I_up] of the fused and reference engines: rows r of two
+// float32 fields with M angles each and row strides ld_dn, ld_up (floats),
+// placed at k = j (I_dn) and k = Mp + j (I_up), zeros at the pad columns
+// [M, Mp) and [Mp + M, 2Mp) where the stacked operator has zero columns too
+struct LoadFieldRows {
+  const float* dn; const float* up; long long ld_dn, ld_up; int M, Mp;
+};
+
 // the loaders whose X is copied into the ring (the others compute it there)
 template <class Loader> __host__ __device__ constexpr bool x_by_copy() {
-  return std::is_same<Loader, LoadFields<float>>::value;
+  return std::is_same<Loader, LoadFields<float>>::value ||
+         std::is_same<Loader, LoadFieldRows>::value;
+}
+
+// float32 rounded to bf16 with ties away from zero by integer masking, as
+// ops/precision.py::_hi_f32 (and the JAX package's split_bf16) computes it
+__device__ __forceinline__ float hi_away(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x8000u) & 0xFFFF0000u);
+}
+
+// x split as the loader's plain version splits it: LoadFieldRows as
+// make_split_dot (split_bf16 / split_bf16_3: x1 and bf16x5's x2 ties away,
+// the last part round half to even), the others round half to even
+// (split_x)
+template <class Loader, int MODE>
+__device__ __forceinline__ void split_a(float x, float* p) {
+  if constexpr (std::is_same<Loader, LoadFieldRows>::value) {
+    const float x1 = hi_away(x), r1 = x - x1;
+    p[0] = x1;
+    if constexpr (MODE == MM_BF16X3) {
+      p[1] = bf16r(r1);
+    } else {
+      const float x2 = hi_away(r1);
+      p[1] = x2;
+      p[2] = bf16r(r1 - x2);
+    }
+  } else {
+    split_x<float, MODE>(x, p);
+  }
 }
 
 __host__ __device__ constexpr int smem_bytes() { return ROWS_AT + BM * 4; }
@@ -101,6 +145,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(ok ? 16 : 0));
+}
+
+// 4 bytes global -> shared, or 4 zero bytes where !ok (src is not read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -184,7 +234,23 @@ __device__ __forceinline__ void load_stage(const Loader& ld, const uint16_t* wb,
     const size_t grow = (size_t)part * 4 * Mp + (row / BN) * Mp + (ok ? n : 0);
     cp_async16(wbase + part * W_PART + w_at(row, c), wb + grow * Kp + k0 + 8 * c, ok);
   }
-  if constexpr (x_by_copy<Loader>()) {
+  if constexpr (std::is_same<Loader, LoadFieldRows>::value) {
+    // one float a copy (rows start at any float): consecutive threads on
+    // consecutive k of a row, so a warp reads 128 contiguous bytes
+    const uint32_t xbase = wbase + 2 * W_PART;
+#pragma unroll 4
+    for (int s = 0; s < BM * BK / NT; ++s) {
+      const int e = tid + s * NT;
+      const int kk = e % BK, row = e / BK;
+      const int r = r0 + row, j = k0 + kk;
+      const bool up = j >= ld.Mp;
+      const int n = up ? j - ld.Mp : j;
+      const bool ok = r < R && n < ld.M;
+      const float* src = !ok ? ld.dn
+                             : (up ? ld.up + r * ld.ld_up + n : ld.dn + r * ld.ld_dn + n);
+      cp_async4(xbase + (row * XS + kk) * 4, src, ok);
+    }
+  } else if constexpr (x_by_copy<Loader>()) {
     constexpr int XCH = BK / 4;                 // 16-byte chunks an X row
     const uint32_t xbase = wbase + 2 * W_PART;
 #pragma unroll
@@ -261,8 +327,8 @@ quad_mma(Loader ld, Epi epi, const uint16_t* __restrict__ wb, int R, int Mp, int
         const int row = wr + g + 8 * (i & 1), col = 16 * ks + 2 * t + 8 * (i >> 1);
         const float2 v = *reinterpret_cast<const float2*>(xs + row * XS + col);
         float p0[3], p1[3];
-        split_x<float, MODE>(v.x, p0);
-        split_x<float, MODE>(v.y, p1);
+        split_a<Loader, MODE>(v.x, p0);
+        split_a<Loader, MODE>(v.y, p1);
 #pragma unroll
         for (int h = 0; h < NX; ++h) xa[ks][h][i] = pack2(p0[h], p1[h]);
       }

@@ -15,11 +15,12 @@ the whole batch, the loop on the device); :func:`resolve_stream` picks.
 The fused engine keeps the radiance field as (down, up) halves of
 (B, L, M), runs the wide per-order work in the two sweep kernels of
 ``ops/fused_sweeps.py`` and the narrow small-µ and polyfit-band fixes (a
-handful of columns) in plain torch between them; the Jₙ products are plain
-matrix products outside any kernel.  It takes every grid, and it is where
-:func:`solve_batch_mega` sends a whole batch whose grid fails
-``mega_supported`` (small-µ columns that a column's polyfit band does not
-cover), as the TPU package does.
+handful of columns) in plain torch between them.  Its Jₙ source is, in
+float32 'bf16x3' / 'bf16x5', one tensor-core kernel an order
+(``ops/fused_source.py``), otherwise four plain matrix products.  It takes
+every grid, and it is where :func:`solve_batch_mega` sends a whole batch
+whose grid fails ``mega_supported`` (small-µ columns that a column's
+polyfit band does not cover), as the TPU package does.
 """
 from __future__ import annotations
 
@@ -37,8 +38,9 @@ from sos_rt_tpu_torch.grids import layer_indices, neighbour_index, tau_profile
 from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.ops import megastream as ms
 from sos_rt_tpu_torch.ops.first_order import first_order, first_order_mega_inputs
+from sos_rt_tpu_torch.ops.fused_source import (SPLIT_MODES, fused_source, mix_source,
+                                               source_columns, source_copy)
 from sos_rt_tpu_torch.ops.fused_sweeps import build_pack, down_sweep, up_sweep_smooth
-from sos_rt_tpu_torch.ops.precision import make_split_dot
 from sos_rt_tpu_torch.ops.source import source_operator
 from sos_rt_tpu_torch.ops.sweeps import (band_choice, polyfit_band_variants,
                                          select_band_choice, small_mu_values,
@@ -534,23 +536,22 @@ class FusedBatch:
 
         a_full_atm = source_operator(tables.p_atm.to(dtype), w_mu)
         a_full_aer = source_operator(tables.p_aer.to(dtype), w_mu)
-        operators = (a_full_atm[:M], a_full_atm[M:], a_full_aer[:M], a_full_aer[M:])
         # matmul precision mode for the Jₙ products (the dominant operations
-        # on canonical-width grids)
+        # on canonical-width grids): the split modes read the operators'
+        # bf16 copy (the kernel's on the card, the plain version's on the
+        # CPU), the others the operators' four blocks
         mm = opts.mm if dtype == torch.float32 else None
-        if mm in ("bf16x3", "bf16x5"):
-            self.dots = [make_split_dot(a, mm, dtype) for a in operators]
+        self.mm = mm if mm in SPLIT_MODES else None
+        self.cols = source_columns(scenes.alb_atm, scenes.alb_aer, w_atm, w_aer, idx_up,
+                                   idx_down, dtype)
+        if self.mm is not None:
+            self.wcopy = source_copy(a_full_atm, a_full_aer, M, self.mm)
         else:
-            self.dots = [lambda x, a=a: x @ a for a in operators]
+            self.operators = (a_full_atm[:M], a_full_atm[M:], a_full_aer[:M],
+                              a_full_aer[M:])
 
         # ---- loop-invariant batched masks ----
         t_idx = torch.arange(L, device=device)
-        self.in_layer = ((t_idx[None, :] >= idx_up[:, None])
-                         & (t_idx[None, :] <= idx_down[:, None]))[..., None]
-        self.alb_atm = cast(scenes.alb_atm)[:, None, None]
-        self.alb_aer = cast(scenes.alb_aer)[:, None, None]
-        self.wa3 = w_atm[:, None, None]
-        self.wr3 = w_aer[:, None, None]
 
         self.mu_down_safe = on_dev(np.where(mu_np[:M] == 0, -1.0, mu_np[:M]))
         self.mu_up_row = torch.cat([torch.zeros((1,), dtype=dtype, device=device),
@@ -582,12 +583,13 @@ class FusedBatch:
         self.lamb_w = (w_mu[:M] * mu[:M])[None, :]
 
     def source(self, dn, up):
-        """Jₙ (B, L, 2M) from the previous order's halves."""
-        jn_atm = self.dots[0](dn) + self.dots[1](up)
-        jn_aer = self.dots[2](dn) + self.dots[3](up)
-        jn_atm = (self.alb_atm / 4.0) * jn_atm
-        jn_aer = (self.alb_aer / 4.0) * jn_aer
-        return torch.where(self.in_layer, self.wa3 * jn_atm + self.wr3 * jn_aer, jn_atm)
+        """Jₙ (B, L, 2M) from the previous order's halves: in the split modes
+        ``ops/fused_source.py::fused_source`` (one kernel launch on the card),
+        otherwise four full-precision products and the mixing."""
+        if self.mm is not None:
+            return fused_source(dn, up, self.wcopy, self.cols, self.mm)
+        a = self.operators
+        return mix_source(dn @ a[0] + up @ a[1], dn @ a[2] + up @ a[3], self.cols)
 
     def narrow_down_fixes(self, raw, jn):
         """The small-µ columns (windowed value or Taylor limit), the zeroed
@@ -640,7 +642,7 @@ def solve_batch_fused(scenes: Scene, tables: PhaseTables, grid: GridSpec,
 
     Per order (:meth:`FusedBatch.order_step`): the Jₙ source products
     (``opts.mm`` None or 'highest': full precision; 'bf16x3' / 'bf16x5' in
-    float32: the split products of ops/precision.py), the downward sweep
+    float32: the source kernel of ops/fused_source.py), the downward sweep
     kernel, the narrow small-µ and polyfit-band fixes, the surface BC, and
     the upward sweep kernel with its smoothing.  The order loop runs on the
     host with one sync per order; a column accumulates only while its own

@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sos_rt_tpu_torch")
 # mode), so that their 42 kernels compile in parallel
 ABLATE_SOURCES = ("mega_ablate", "mega_ablate_f32", "mega_ablate_f64")
 # the streamed passes' ablated builds (passA's and passB's flags)
-SOURCES = ("megastream", "megakernel", "fused_sweeps", "micro",
+SOURCES = ("megastream", "megakernel", "fused_sweeps", "fused_source", "micro",
            "megastream_ablate") + ABLATE_SOURCES
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
@@ -55,6 +55,9 @@ SIGNATURES = {
         "sos_up_walk": [_I] + [_P] * 6 + [_I] * 3 + [_Q, _Q, _P],
         "sos_up_joins": [_I] + [_P] * 3 + [_I] * 2 + [_P],
         "sos_up_rows": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "fused_source": {
+        "sos_fused_source": [_I, _P, _P, _Q, _Q, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "micro": {
         "sos_micro_ops": [_I, _I] + [_P] * 8,

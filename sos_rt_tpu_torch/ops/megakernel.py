@@ -413,8 +413,22 @@ MAX_RESIDENT_MP = 512       # the kernel's thread shapes cover Mp <= 512
 MAX_TC_MP = 256             # the 256-thread block: its products may take the tensor cores
 # the k-tile of the tensor-core products (BK of csrc/quad_mma.cuh and of
 # csrc/mega_mma.cuh): their bf16 operator copies pad K with zeros to a
-# multiple of it (megastream.tc_operator)
+# multiple of it (tc_operator)
 TC_K_TILE = 32
+
+
+def tc_operator(hi, lo):
+    """The bf16 copy of a split operator (hi, lo), each (N, K) and exact in
+    bf16, that the tensor-core mainloop reads: (2, N, Kp) with [0] = hi and
+    [1] = lo, rows k-contiguous as the operator's own (the B operand of a
+    row-major A), K zero-padded to Kp, the next multiple of TC_K_TILE.  The
+    conversion is lossless."""
+    n, k = hi.shape
+    kp = -(-k // TC_K_TILE) * TC_K_TILE
+    out = torch.zeros((2, n, kp), dtype=torch.bfloat16, device=hi.device)
+    out[0, :, :k] = hi
+    out[1, :, :k] = lo
+    return out
 
 
 def default_cols_per_tile(mp: int) -> int:

@@ -41,14 +41,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from sos_rt_tpu_torch.ops import cuda_build, fused_sweeps, micro
+from sos_rt_tpu_torch.ops import cuda_build, fused_source, fused_sweeps, micro
 from sos_rt_tpu_torch.ops.megakernel import (
     ABLATE_FLAGS, CP_CONST, CP_GRD, PK_ASTAR, PK_CDN, PK_CHOICE, PK_COEF_AER, PK_COEF_ATM,
     PK_CUP, PK_GS, PK_HDT_DN, PK_HDT_UP, PK_R1, PK_R2, RC_EMU_DN, RC_EMU_UP,
     RC_IVDN, RC_IVUP, RC_MUUP, RC_PKA, RC_PKR, ST_CONV, ST_N, ST_RATIO,
     TC_K_TILE, _dot3, _smooth_up, add_terms, angle_rows, band_fix_tile,
     band_validity, bc_matrix, make_i1_block, mega_call, ratio_rows_tile,
-    split_parts, stencil_taps)
+    split_parts, stencil_taps, tc_operator)
 from sos_rt_tpu_torch.ops.precision import split_bf16
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -60,20 +60,6 @@ def takes_tensor_cores(dtype, mm: str) -> bool:
     with a bf16 split ('bf16x3', 'bf16x5').  float64 and 'highest' have no
     bf16 split and stay on the SIMT product."""
     return dtype == torch.float32 and mm != "highest"
-
-
-def tc_operator(hi, lo):
-    """The bf16 copy of a split operator (hi, lo), each (N, K) and exact in
-    bf16, that the tensor-core mainloop reads: (2, N, Kp) with [0] = hi and
-    [1] = lo, rows k-contiguous as the operator's own (the B operand of a
-    row-major A), K zero-padded to Kp, the next multiple of TC_K_TILE.  The
-    conversion is lossless."""
-    n, k = hi.shape
-    kp = -(-k // TC_K_TILE) * TC_K_TILE
-    out = torch.zeros((2, n, kp), dtype=torch.bfloat16, device=hi.device)
-    out[0, :, :k] = hi
-    out[1, :, :k] = lo
-    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,12 +430,15 @@ passA.ablate_launches = passB.ablate_launches = 0
 KERNELS = (passI, passA, passB)              # the streamed loop's kernels
 TC_KERNELS = (passI, passA)                  # those with a tensor-core mainloop
 ABLATE_KERNELS = (passA, passB)              # those with an ablated build
-# every kernel wrapper of the port
+# every wrapper of a TPU kernel's port
 ALL_KERNELS = KERNELS + (mega_call,) + fused_sweeps.KERNELS + micro.KERNELS
+# and of the port's own kernel, which ports no TPU kernel (the split-mode
+# source, ops/fused_source.py): every wrapper that counts its launches
+COUNTED_KERNELS = ALL_KERNELS + fused_source.KERNELS
 
 
 def reset_launches() -> None:
-    for k in ALL_KERNELS:
+    for k in COUNTED_KERNELS:
         k.launches = 0
     for k in TC_KERNELS + (mega_call,):
         k.tc_launches = 0

@@ -21,9 +21,12 @@ loop (:func:`_setup_column`).  The stages run inside the JAX package's
 named scopes, as ``torch.profiler.record_function`` ranges:
 ``sos.first_order``, and per order ``sos.source_jn``, ``sos.down_sweep``
 and ``sos.up_sweep_bc`` (``tools/profile.py`` reads them).  The loop runs on the host with one sync per
-order; no kernel of its own: the products are matrix products
-(``opts.mm`` 'bf16x3' / 'bf16x5' in float32: the split products of
-ops/precision.py), the rest elementwise work and scans.
+order.  The products are matrix products, but in float32 'bf16x3' /
+'bf16x5' on the card, where the source is one launch of the fused engine's
+source kernel an order (``ops/fused_source.py``); on the CPU, and with
+``shard_tables`` (each rank holds only some of the operators' columns), the
+split products of ops/precision.py.  The rest is elementwise work and
+scans.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from sos_rt_tpu_torch.config import (GridSpec, Scene, SolverOptions,
                                      torch_dtype)
 from sos_rt_tpu_torch.grids import neighbour_index, tau_profile
 from sos_rt_tpu_torch.ops.first_order import first_order
+from sos_rt_tpu_torch.ops.fused_source import (SPLIT_MODES, fused_source, mix_source,
+                                               source_columns, source_copy)
 from sos_rt_tpu_torch.ops.precision import make_split_dot
 from sos_rt_tpu_torch.ops.source import source_operator
 from sos_rt_tpu_torch.ops.sweeps import (
@@ -172,7 +177,6 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     B = sc.mu0.shape[0]
     mu = torch.as_tensor(grid.mu(), dtype=dtype, device=device)
     w_mu = torch.as_tensor(grid.trapz_weights(), dtype=dtype, device=device)
-    col = lambda x: x[:, None, None]
 
     tau, idx_up, idx_down = tau_profile(sc.tau_star_atm, sc.tau_star_aer, sc.z0,
                                         sc.z_up, sc.z_down, L)
@@ -205,9 +209,6 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     a_down_full = torch.cat([torch.ones_like(zeros_d), att_d], dim=1)
     a_up_full = torch.cat([att_u, torch.ones((B, 1, M - 1), dtype=dtype,
                                              device=device)], dim=1)
-
-    # source blending mask (main_lambertian.py:322)
-    in_layer = ((t_idx >= iu) & (t_idx <= idn))[:, :, None]
 
     # small-µ window (loop-invariant; see ops.sweeps.small_mu_window)
     small_cols = torch.as_tensor(stencils.small_cols, device=device)
@@ -242,26 +243,31 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     cols = torch.arange(B, device=device)
 
     # split-product precision mode (ops/precision.py); None keeps full
-    # precision products
+    # precision products.  On the card the split modes take the source
+    # kernel (ops/fused_source.py); the CPU and shard_tables, whose ranks
+    # hold only some of the operators' columns, keep the split products
     mm = opts.mm if dtype == torch.float32 else None
+    split = mm in SPLIT_MODES
+    src_cols = source_columns(sc.alb_atm, sc.alb_aer, w_atm, w_aer, idx_up, idx_down,
+                              dtype)
 
     def make_dot(op):
         if model is not None:
             op, gather = _model_columns(op, *model)
-        dot = (make_split_dot(op, mm, dtype) if mm in ("bf16x3", "bf16x5")
-               else lambda x: x @ op)
+        dot = make_split_dot(op, mm, dtype) if split else lambda x: x @ op
         return dot if model is None else lambda x: gather(dot(x))
 
-    dot_atm, dot_aer = make_dot(a_atm), make_dot(a_aer)
-    alb_atm, alb_aer = col(sc.alb_atm), col(sc.alb_aer)
-    wa, wr = col(w_atm), col(w_aer)
+    if split and model is None and a_atm.is_cuda:
+        wcopy = source_copy(a_atm, a_aer, M, mm)
+        source = lambda x: fused_source(x[:, :, :M], x[:, :, M:], wcopy, src_cols, mm)
+    else:
+        dot_atm, dot_aer = make_dot(a_atm), make_dot(a_aer)
+        source = lambda x: mix_source(dot_atm(x), dot_aer(x), src_cols)
     grd = sc.grd_alb[:, None]
 
     def source_fn(in_prev):
         with record_function("sos.source_jn"):
-            jn_atm = (alb_atm / 4.0) * dot_atm(in_prev)
-            jn_aer = (alb_aer / 4.0) * dot_aer(in_prev)
-            return torch.where(in_layer, wa * jn_atm + wr * jn_aer, jn_atm)
+            return source(in_prev)
 
     def compute_down(jn):
         jn_d = jn[:, :, :M]

@@ -89,13 +89,14 @@ def main(argv=None) -> dict:
     loop_kw = dict(tol=float(opts.tol), max_orders=args.orders,
                    cols_per_block=sb.cols_per_block, outputs="summary")
 
-    times, kernels, by_kernel, walls = {}, {}, {}, {}
+    times, kernels, by_kernel, lost, walls = {}, {}, {}, {}, {}
     for ab in variants():
         loop = lambda: ms.stream_order_loop(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop_kw,
                                             ablate=ab)
         times[ab] = best_ms(loop, device)
-        by_kernel[ab] = (profile.trace(loop, None, ab, device)["kernels"]
-                         if device.type == "cuda" else {})
+        t = profile.trace(loop, None, ab, device) if device.type == "cuda" else None
+        by_kernel[ab] = t["kernels"] if t else {}
+        lost[ab] = t["lost_launches"] if t else None
         kernels[ab] = (sum(k["ms"] for k in by_kernel[ab].values())
                        if device.type == "cuda" else None)
         walls[ab] = min(_synced_ms(lambda: solve_batch_mega(
@@ -124,7 +125,7 @@ def main(argv=None) -> dict:
     return {"orders": args.orders, "batch": args.batch,
             "grid": [grid.nb_angles, grid.nb_layers], "device": str(device),
             "ms": times, "kernels_ms": kernels, "solve_ms": walls, "share": share,
-            "kernel_share": kshare, "by_kernel": by_kernel}
+            "kernel_share": kshare, "by_kernel": by_kernel, "lost_launches": lost}
 
 
 if __name__ == "__main__":

@@ -15,13 +15,13 @@ solver's scopes (``sos.first_order``, ``sos.source_jn``, ``sos.down_sweep``,
 fused engines; the mega engine's kernels show by name), device ms by
 kernel, the host's ms of the window and the device's busy share of it (the
 union of the intervals of its kernels and copies over the window, from the
-first event of the trace to the last).  ``--canonical`` profiles the
-501×800 single-column reference solve (float32, at most 40 orders), as the
-JAX tool does; otherwise ``--batch`` columns of the ``fwc_sweep`` preset
-through ``run_sweep(mu0_pool=8)`` on ``--engine``.  ``--grid`` replaces
-either grid (for the tests).  ``--device cpu`` runs on the CPU, for the
-tests: the scopes' host time only, no device time.  On a card a trace that
-shows no device time raises.
+recorded call's start to the trace's last event).  ``--canonical``
+profiles the 501×800 single-column reference solve (float32, at most 40
+orders), as the JAX tool does; otherwise ``--batch`` columns of the
+``fwc_sweep`` preset through ``run_sweep(mu0_pool=8)`` on ``--engine``.
+``--grid`` replaces either grid (for the tests).  ``--device cpu`` runs on
+the CPU, for the tests: the scopes' host time only, no device time.  On a
+card a trace that shows no device time raises.
 """
 from __future__ import annotations
 
@@ -33,6 +33,14 @@ import time
 import torch
 
 SCOPES = ("sos.first_order", "sos.source_jn", "sos.down_sweep", "sos.up_sweep_bc")
+# the span of the recorded call in :func:`trace`'s window; :func:`read_trace`
+# reads only what the host starts inside it and the device work it launched
+RECORDED = "sos.recorded_call"
+# seconds between the recorded step's opening launch and the recorded call:
+# the profiler drops, at times, the device records of the kernels that run
+# in the first milliseconds of a window (``tools/trace_windows.py`` counts
+# the windows that lose one)
+OPENING_S = 0.05
 DEFAULT_OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "sos_rt_tpu_torch", "trace")
 
@@ -67,39 +75,63 @@ def _device_us(ev) -> float:
     return float(v if v is not None else getattr(ev, "cuda_time_total", 0.0))
 
 
-def _launched_us(events, dev, cpu) -> dict:
-    """{scope: µs of the device work launched inside it}: each kernel or
-    copy is matched to the host's launch call with its correlation id
-    (``cudaLaunchKernel`` and the like), and counts in the scope whose
-    host interval holds that call.  This also counts the port's own
-    kernels, which ctypes launches outside any PyTorch op."""
+def _launched_us(events, dev, cpu):
+    """({scope: µs of the device work launched inside it}, {scope: {kernel:
+    {calls, ms}}}): each kernel or copy is matched to the host's launch call
+    with its correlation id (``cudaLaunchKernel`` and the like), and counts
+    in the scope whose host interval holds that call.  This also counts the
+    port's own kernels, which ctypes launches outside any PyTorch op."""
     launch_at = {e.id: e.time_range.start for e in events
                  if e.device_type == cpu and "Launch" in e.name}
     spans = {name: [(e.time_range.start, e.time_range.end) for e in events
                     if e.name == name and e.device_type == cpu] for name in SCOPES}
     out = dict.fromkeys(SCOPES, 0.0)
+    by_kernel = {name: {} for name in SCOPES}
     for k in dev:
         t = launch_at.get(k.id)
         for name, iv in spans.items():
             if t is not None and any(a <= t <= b for a, b in iv):
-                out[name] += k.time_range.end - k.time_range.start
+                us = k.time_range.end - k.time_range.start
+                out[name] += us
+                kn = by_kernel[name].setdefault(kernel_name(k.name),
+                                                {"calls": 0, "ms": 0.0})
+                kn["calls"] += 1
+                kn["ms"] += us / 1e3
                 break
-    return out
+    return out, by_kernel
 
 
 def read_trace(events, wall_ms: float, device) -> dict:
     """The table of a profiler window's ``events`` (``prof.events()``):
     {wall_ms, window_ms, busy_ms, busy_share, idle_ms, scopes: {name:
-    {calls, host_ms, device_ms}}, kernels: {name: {calls, ms}}}.  A scope's
-    device ms is the time of the device work launched inside it (the larger
-    of the profiler's own sum over its ops and :func:`_launched_us`; None
-    where it launched none, and on the CPU); its host ms the host time
-    inside it."""
+    {calls, host_ms, device_ms, kernels}}, kernels: {name: {calls, ms}},
+    lost_launches}.  Where the events hold :data:`RECORDED`'s span, only
+    the host events that start inside it count, and the device work that
+    the host's runtime calls among them launched (matched by correlation
+    id, not by time: the device's clock, as the trace maps it, can run ahead
+    of the host's).  A scope's device ms is the time of the
+    device work launched inside it (the larger of the profiler's own sum
+    over its ops and :func:`_launched_us`; None where it launched none, and
+    on the CPU), its kernels that work by kernel name ({name: {calls, ms}},
+    matched as :func:`_launched_us` matches it); its host ms the host time
+    inside it.  ``lost_launches`` counts the host's launch calls whose
+    device record the trace lacks."""
     from torch.autograd import DeviceType
 
+    opened = [e.time_range.start for e in events
+              if e.name == RECORDED and e.device_type == DeviceType.CPU]
+    if opened:
+        host = [e for e in events
+                if e.device_type == DeviceType.CPU and e.time_range.start >= min(opened)]
+        runtime = {e.id for e in host if e.name.startswith("cu")}
+        events = host + [e for e in events if e.device_type != DeviceType.CPU
+                         and e.id in runtime and not getattr(e, "is_user_annotation", False)]
     dev = [e for e in events if e.device_type != DeviceType.CPU
            and not getattr(e, "is_user_annotation", False)]
-    launched = _launched_us(events, dev, DeviceType.CPU)
+    recorded = {e.id for e in dev}
+    lost = sum(1 for e in events if e.device_type == DeviceType.CPU
+               and "Launch" in e.name and e.id not in recorded)
+    launched, launched_kernels = _launched_us(events, dev, DeviceType.CPU)
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     window_us = (max(s[1] for s in spans) - min(s[0] for s in spans)) if spans else 0.0
     busy = busy_us([(e.time_range.start, e.time_range.end) for e in dev])
@@ -118,25 +150,29 @@ def read_trace(events, wall_ms: float, device) -> dict:
                         "host_ms": sum(e.time_range.end - e.time_range.start
                                        for e in evs) / 1e3,
                         "device_ms": d_us / 1e3 if device.type == "cuda" and d_us > 0
-                        else None}
+                        else None,
+                        "kernels": launched_kernels[name]}
     return {"device": str(device), "wall_ms": wall_ms, "window_ms": window_us / 1e3,
             "busy_ms": busy / 1e3,
             "busy_share": busy / window_us if device.type == "cuda" and window_us > 0
             else None,
             "idle_ms": (window_us - busy) / 1e3, "scopes": scopes,
-            "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"]))}
+            "kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])),
+            "lost_launches": lost}
 
 
-def trace(fn, out: str | None, label: str, device, warm: bool = True) -> dict:
+def trace(fn, out: str | None, label: str, device, warm: bool = True,
+          opening: float = OPENING_S) -> dict:
     """Call ``fn`` inside the profiler's warm-up step (a no-op there where
     ``warm`` is False), then once more inside its recorded step; write
     ``<out>/<label>.json`` (Chrome trace of the recorded step; none where
     ``out`` is None) and return :func:`read_trace`'s table with the trace's
-    path.  The warm-up step takes the start-up of the device tracing, which
-    can leave a window's first launches unrecorded (seen on an H100: the
-    streamed loop's passI).  On a card, raises RuntimeError where the
-    recorded step shows no device time."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    path.  The warm-up step takes the start-up of the device tracing.  On a
+    card the recorded step opens with a one-element launch and waits
+    ``opening`` seconds before the recorded call, whose span
+    (:data:`RECORDED`) bounds the table's window; raises RuntimeError where
+    the recorded call shows no device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     path = os.path.join(out, f"{label}.json") if out is not None else None
@@ -156,10 +192,15 @@ def trace(fn, out: str | None, label: str, device, warm: bool = True) -> dict:
             torch.ones(1, device=device).add_(1.0)
         _sync(device)
         prof.step()
-        t0 = time.perf_counter()
-        fn()
-        _sync(device)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        if device.type == "cuda":
+            torch.ones(1, device=device).add_(1.0)
+            _sync(device)
+            time.sleep(opening)
+        with record_function(RECORDED):
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
     table = read_trace(steps[0], wall_ms, device)
     if device.type == "cuda" and not table["busy_ms"] > 0:

@@ -43,6 +43,13 @@ tools/ablate_stream.py equals the CPU's in float64 (1e-12).
 The resident kernel with the first order from the host (sos_mega_i1in) is
 held against mega_plain started from the same planes as sos_mega is, and to
 sos_mega itself in float64 (1e-12).
+The fused and reference engines' split-mode source kernel (sos_fused_source,
+csrc/fused_source.cu) is held against fused_source_plain within 1e-4 of
+scale, the tensor-core products' tolerance (K = 2Mp, as passA's), at
+M = 13, 64 and 501 (rows of odd length), on both call sites' layouts and on
+inputs that sit on the bf16 tie; whole float32 split-mode solves of both
+engines launch it once an order and agree with the CPU's plain solves as
+whole float32 loops do.
 """
 import dataclasses
 
@@ -52,6 +59,7 @@ import torch
 
 from sos_rt_tpu_torch.config import GridSpec, Scene, SolverOptions
 from sos_rt_tpu_torch.fused import FusedBatch, prepare_batch, solve_batch_mega
+from sos_rt_tpu_torch.ops import fused_source as fsrc
 from sos_rt_tpu_torch.ops import fused_sweeps as fs
 from sos_rt_tpu_torch.ops import megakernel as mk
 from sos_rt_tpu_torch.ops import megastream as ms
@@ -869,3 +877,75 @@ def test_ablated_stream_on_card_matches_cpu(cuda, ablate):
     assert torch.equal(sols[0].n_orders.cpu(), sols[1].n_orders)
     for f in ("i_toa", "i_surface"):
         assert _rel(getattr(sols[0], f).cpu(), getattr(sols[1], f)) <= 1e-12
+
+
+# ---- the split-mode J_n source of the fused and reference engines ----
+
+SPLIT = ["bf16x3", "bf16x5"]
+
+
+def _source_batch(device, m, surface, mm, L=32, B=4):
+    grid = GridSpec(m, L)
+    scenes, tables = _inputs(device, torch.float32, batch=B, grid=grid)
+    opts = SolverOptions(surface=surface, dtype="float32", mm=mm)
+    return FusedBatch(scenes, tables, grid, opts, device)
+
+
+@pytest.mark.parametrize("mm", SPLIT)
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("m", [13, 64, 501])
+def test_fused_source_matches_plain(cuda, m, surface, mm):
+    """Both call sites' layouts: the halves of a (B, L, 2M) field (row
+    stride 2M: the reference engine's field, the fused engine's first
+    order) and (B, L, M) fields (row stride M: the fused engine's later
+    orders)."""
+    fb = _source_batch(cuda, m, surface, mm)
+    halves = (fb.i1[:, :, :m], fb.i1[:, :, m:])
+    fsrc.fused_source.launches = 0
+    for dn, up in (halves, tuple(h.contiguous() for h in halves)):
+        got = fsrc.fused_source(dn, up, fb.wcopy, fb.cols, mm)
+        torch.cuda.synchronize()
+        want = fsrc.fused_source_plain(dn, up, fb.wcopy, fb.cols, mm)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert _rel(got, want) <= 1e-4
+    assert fsrc.fused_source.launches == 2
+
+
+@pytest.mark.parametrize("mm", SPLIT)
+@pytest.mark.parametrize("m", [13, 501])
+def test_fused_source_on_bf16_ties(cuda, m, mm):
+    """Every input's low 16 bits sit on the bf16 tie, where the kernel's
+    split (ties away from zero) and a round-half-even one part ways."""
+    fb = _source_batch(cuda, m, "lambertian", mm, L=16)
+    rng = np.random.default_rng(11)
+
+    def ties():
+        bits = rng.integers(0x3C000000, 0x3F800000, size=(fb.B, fb.L, m), dtype=np.uint32)
+        return torch.as_tensor(((bits & np.uint32(0xFFFF0000)) | np.uint32(0x8000))
+                               .view(np.float32), device=cuda)
+
+    dn, up = ties(), ties()
+    got = fsrc.fused_source(dn, up, fb.wcopy, fb.cols, mm)
+    torch.cuda.synchronize()
+    assert _rel(got, fsrc.fused_source_plain(dn, up, fb.wcopy, fb.cols, mm)) <= 1e-4
+
+
+@pytest.mark.parametrize("engine", ["fused", "reference"])
+@pytest.mark.parametrize("mm", SPLIT)
+def test_split_mode_solves_launch_the_source_kernel(cuda, mm, engine):
+    """A whole float32 split-mode solve on the card launches the source
+    kernel once an order (no split product runs) and agrees with the CPU's
+    solve, whose source is the plain split products: equal order counts,
+    the fields as whole float32 loops with other product sums agree."""
+    opts = SolverOptions(surface="lambertian", dtype="float32", mm=mm)
+    ms.reset_launches()
+    got = solve_batch(*_inputs(cuda, torch.float32), GRID, opts, engine=engine,
+                      device=cuda)
+    assert fsrc.fused_source.launches == int(got.n_orders.max()) - 1
+    scenes, tables = _inputs(cuda, torch.float32)
+    want = solve_batch(scenes.map(lambda x: x.cpu()),
+                       PhaseTables(tables.p0_atm.cpu(), tables.p_atm.cpu(),
+                                   tables.p0_aer.cpu(), tables.p_aer.cpu()),
+                       GRID, opts, engine=engine, device=torch.device("cpu"))
+    assert torch.equal(got.n_orders.cpu(), want.n_orders)
+    assert _f32_loops_agree(got.i_total.cpu(), want.i_total)

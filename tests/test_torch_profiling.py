@@ -7,8 +7,8 @@ ranges of the JAX package's named scopes (``sos.first_order``,
 engine, as the JAX one, has no ``sos.first_order``).  A CPU trace of a
 solve at GridSpec(24, 32), float64, holds them, and the results with the
 profiler on equal those with it off to the bit.  The tools
-``tools/profile.py`` and ``tools/ablate.py`` run at a small ``--device
-cpu`` size and print their tables.
+``tools/profile.py``, ``tools/ablate.py`` and ``tools/trace_windows.py``
+run at a small ``--device cpu`` size and print their tables.
 """
 import os
 
@@ -23,6 +23,7 @@ from sos_rt_tpu_torch.config import Scene
 from sos_rt_tpu_torch.solver import PhaseTables, solve_batch_reference
 from sos_rt_tpu_torch.tools import ablate as ablate_tool
 from sos_rt_tpu_torch.tools import profile as profile_tool
+from sos_rt_tpu_torch.tools import trace_windows
 
 GRID = GridSpec(24, 32)
 SCOPES = profile_tool.SCOPES
@@ -100,6 +101,32 @@ def test_scope_device_time_counts_what_it_launched():
     assert t["scopes"]["sos.up_sweep_bc"]["device_ms"] == 16 / 1e3
     assert t["busy_ms"] == 21 / 1e3 and t["window_ms"] == 30 / 1e3
     assert t["kernels"]["up_walk"] == {"calls": 1, "ms": 16 / 1e3}
+    assert t["lost_launches"] == 0
+
+
+def test_trace_window_is_the_recorded_call():
+    """What the host starts before the recorded call's span (the recorded
+    step's opening launch) is left out of the table, and kept is the device
+    work launched inside it, also where the trace's device clock puts it
+    before the span; a launch call without its device record is counted
+    as lost."""
+    from types import SimpleNamespace as NS
+
+    from torch.autograd import DeviceType
+
+    def ev(name, start, end, dev=DeviceType.CPU, id=0):
+        return NS(name=name, id=id, device_type=dev, time_range=NS(start=start, end=end),
+                  is_user_annotation=False, device_time_total=0.0)
+
+    events = [ev("cudaLaunchKernel", 0, 1, id=1), ev("fill", 1, 2, DeviceType.CUDA, 1),
+              ev(profile_tool.RECORDED, 100, 140),
+              ev("sos.source_jn", 101, 110), ev("cudaLaunchKernel", 102, 103, id=7),
+              ev("cudaLaunchKernel", 104, 105, id=8),
+              ev("quad", 99, 120, DeviceType.CUDA, 7)]
+    t = profile_tool.read_trace(events, 40.0, torch.device("cuda"))
+    assert t["window_ms"] == 41 / 1e3 and t["busy_ms"] == 21 / 1e3
+    assert set(t["kernels"]) == {"quad"} and t["lost_launches"] == 1
+    assert t["scopes"]["sos.source_jn"]["kernels"] == {"quad": {"calls": 1, "ms": 21 / 1e3}}
 
 
 def test_ablate_tool_on_the_cpu(capsys):
@@ -110,3 +137,10 @@ def test_ablate_tool_on_the_cpu(capsys):
     # a torch.Generator seeded 0 draws the batch: the same on every call
     a, b = ablate_tool.make_batch(4, "cpu"), ablate_tool.make_batch(4, "cpu")
     assert torch.equal(a.grd_alb, b.grd_alb) and float(a.grd_alb.max()) < 0.9
+
+
+def test_trace_windows_tool_on_the_cpu(capsys):
+    res = trace_windows.main(["1", "--opening", "0", "--device", "cpu",
+                              "--grid", "24", "32"])
+    assert res == {0.0: {"windows": 2, "lost": 0, "short": 0, "busy_share": [None]}}
+    assert "opening 0.000 s: 2 windows" in capsys.readouterr().out
