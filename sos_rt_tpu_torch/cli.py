@@ -257,8 +257,9 @@ def cmd_sweep(args):
         return
     m["preset"], m["batch_requested"] = args.preset, batch
     if "col_per_s" in m:
+        stages = ", ".join(f"{k} {v:.2f}s" for k, v in m["stages_s"].items())
         log(f"{batch} columns: {m.get('wall_s', 0):.2f}s "
-            f"({m['col_per_s']:,.0f} col/s), engine={engine}/{outputs}")
+            f"({m['col_per_s']:,.0f} col/s), engine={engine}/{outputs}; {stages}")
     print(json.dumps({"sweep_metrics": m}), flush=True)
     if args.metrics:
         with open(args.metrics, "w") as f:

@@ -29,7 +29,6 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sos_rt_tpu_torch.config import (SCENE_FIELDS, GridSpec, Scene, SolverOptions,
                                      full_precision_matmul, resolve_device,
@@ -46,6 +45,9 @@ from sos_rt_tpu_torch.ops.sweeps import (band_choice, polyfit_band_variants,
                                          select_band_choice, small_mu_values,
                                          small_mu_window, stencils_for)
 from sos_rt_tpu_torch.solver import PhaseTables, Solution
+from sos_rt_tpu_torch.spans import (DOWN_SWEEP, LOOP_COND, MEGA_PREDICT, MEGA_PREPARE,
+                                    MEGA_SOLVE, MEGA_SORT, ORDER, SOURCE_JN, UP_SWEEP_BC,
+                                    span)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,12 +135,13 @@ def predict_order_count(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     if (B < min_batch or grid.spacing != "uniform" or grid.nb_angles <= PREDICT_ANGLES
             or (opts.dtype == "float64" and device.type == "cuda")):
         return None
-    cg, ct = coarse_problem(tables, grid, device)
-    # stream=None: the 8×16 grid takes the resident kernel (one launch
-    # instead of two per order and block; measured 5× faster, PERF.md §6)
-    sol = solve_batch_mega(scenes, ct, cg, opts, outputs="summary", sort=False,
-                           device=device)
-    return sol.n_orders
+    with span(MEGA_PREDICT):
+        cg, ct = coarse_problem(tables, grid, device)
+        # stream=None: the 8×16 grid takes the resident kernel (one launch
+        # instead of two per order and block; measured 5× faster, PERF.md §6)
+        sol = solve_batch_mega(scenes, ct, cg, opts, outputs="summary", sort=False,
+                               device=device)
+        return sol.n_orders
 
 
 def resolve_stream(stream: bool | None, grid: GridSpec, dtype: torch.dtype) -> bool:
@@ -231,6 +234,7 @@ def host_i1_planes(i1, nb_angles: int, mp: int):
                  for h in (i1[..., :nb_angles], i1[..., nb_angles:]))
 
 
+@span(MEGA_PREPARE)
 def prepare_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
                   opts: SolverOptions, mm: str | None = None,
                   cols_per_block: int | None = None, device=None,
@@ -448,9 +452,10 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     tables = tables_on(tables, device)
 
     if sort:
-        key = sort_key(scenes, tables, grid, opts, sort, device)
-        perm = torch.argsort(key, stable=True)
-        inv = torch.argsort(perm, stable=True)
+        with span(MEGA_SORT):
+            key = sort_key(scenes, tables, grid, opts, sort, device)
+            perm = torch.argsort(key, stable=True)
+            inv = torch.argsort(perm, stable=True)
         sol = solve_batch_mega(take_columns(scenes, perm), tables.take(perm),
                                grid, opts, cols_per_block=cols_per_block,
                                sort=False, mm=mm, outputs=outputs, i1=i1,
@@ -467,29 +472,30 @@ def solve_batch_mega(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     planes = sb.i1_planes()
     # only the planes are read below: let a summary solve free the field
     sb = dataclasses.replace(sb, i1=None, i1dn=None, i1up=None)
-    loop = dict(tol=float(opts.tol), max_orders=int(opts.max_orders))
-    if stream:
-        res = ms.stream_order_loop(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
-                                   cols_per_block=sb.cols_per_block,
-                                   outputs=outputs, ablate=ablate, **planes)
-    else:
-        res = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
-                           full=outputs == "full",
-                           cols_per_tile=sb.cols_per_block, ablate=ablate, **planes)
-        if outputs == "full":       # (L, Bp, Mp) → (Bp, L, Mp)
-            res = (res[0].transpose(0, 1), res[1].transpose(0, 1), res[2])
+    with span(MEGA_SOLVE):
+        loop = dict(tol=float(opts.tol), max_orders=int(opts.max_orders))
+        if stream:
+            res = ms.stream_order_loop(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
+                                       cols_per_block=sb.cols_per_block,
+                                       outputs=outputs, ablate=ablate, **planes)
+        else:
+            res = mk.mega_call(sb.pack, sb.cpar, sb.tiles, sb.ops, **loop,
+                               full=outputs == "full",
+                               cols_per_tile=sb.cols_per_block, ablate=ablate, **planes)
+            if outputs == "full":       # (L, Bp, Mp) → (Bp, L, Mp)
+                res = (res[0].transpose(0, 1), res[1].transpose(0, 1), res[2])
 
-    stats = res[-1]
-    B, M = sb.batch, grid.nb_angles
-    common = dict(n_orders=stats[mk.ST_N].to(torch.int32)[:B],
-                  converged=(stats[mk.ST_CONV] > 0.5)[:B], tau=sb.tau[:B],
-                  idx_up=sb.idx_up[:B], idx_down=sb.idx_down[:B])
-    if outputs == "summary":
-        toa = torch.cat([res[0][:, :M], res[1][:, :M]], dim=1)[:B]
-        srf = torch.cat([res[2][:, :M], res[3][:, :M]], dim=1)[:B]
-        return SweepSummary(i_toa=toa, i_surface=srf, **common)
-    i_total = torch.cat([res[0][..., :M], res[1][..., :M]], dim=2)[:B]
-    return Solution(i_total=i_total, i1=i1_out, **common)
+        stats = res[-1]
+        B, M = sb.batch, grid.nb_angles
+        common = dict(n_orders=stats[mk.ST_N].to(torch.int32)[:B],
+                      converged=(stats[mk.ST_CONV] > 0.5)[:B], tau=sb.tau[:B],
+                      idx_up=sb.idx_up[:B], idx_down=sb.idx_down[:B])
+        if outputs == "summary":
+            toa = torch.cat([res[0][:, :M], res[1][:, :M]], dim=1)[:B]
+            srf = torch.cat([res[2][:, :M], res[3][:, :M]], dim=1)[:B]
+            return SweepSummary(i_toa=toa, i_surface=srf, **common)
+        i_total = torch.cat([res[0][..., :M], res[1][..., :M]], dim=2)[:B]
+        return Solution(i_total=i_total, i1=i1_out, **common)
 
 
 class FusedBatch:
@@ -622,15 +628,15 @@ class FusedBatch:
     def order_step(self, dn_prev, up_prev):
         """One scattering order: (I↓, I↑) of order n from those of n−1.
         The halves of Jₙ go to the kernels as views, with their strides.
-        The stages run in the JAX engine's named scopes (record_function
-        ranges ``sos.source_jn``, ``sos.down_sweep``, ``sos.up_sweep_bc``)."""
+        The stages run in the JAX engine's named scopes (spans
+        ``sos.source_jn``, ``sos.down_sweep``, ``sos.up_sweep_bc``)."""
         M = self.M
-        with record_function("sos.source_jn"):
+        with span(SOURCE_JN):
             jn = self.source(dn_prev, up_prev)
-        with record_function("sos.down_sweep"):
+        with span(DOWN_SWEEP):
             raw = down_sweep(jn[:, :, :M], self.pack, self.mu_down_safe)
             dn = self.narrow_down_fixes(raw, jn)
-        with record_function("sos.up_sweep_bc"):
+        with span(UP_SWEEP_BC):
             up = up_sweep_smooth(jn[:, :, M:], self.pack, self.cparams, self.mu_up_row,
                                  self.surface_bc(dn))
         return dn, up
@@ -670,14 +676,20 @@ def solve_batch_fused(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     # be inf/NaN for any zero I1 entry in degenerate scenes
     ratio = torch.full((fb.B,), 2.0 * float(opts.tol), dtype=dtype, device=device)
     n = torch.ones((fb.B,), dtype=torch.int32, device=device)
-    while bool(((ratio >= tol).any() & (n.max() < opts.max_orders)).item()):
-        dn_prev, up_prev = fb.order_step(dn_prev, up_prev)
-        active = ratio >= tol
-        a3 = active[:, None, None]
-        dn_tot = torch.where(a3, dn_tot + dn_prev, dn_tot)
-        up_tot = torch.where(a3, up_tot + up_prev, up_tot)
-        ratio = torch.where(active, ratio_fn(dn_prev, up_prev, dn_tot, up_tot), ratio)
-        n = n + active.to(torch.int32)
+
+    def loop_on():
+        with span(LOOP_COND):
+            return bool(((ratio >= tol).any() & (n.max() < opts.max_orders)).item())
+
+    while loop_on():
+        with span(ORDER):
+            dn_prev, up_prev = fb.order_step(dn_prev, up_prev)
+            active = ratio >= tol
+            a3 = active[:, None, None]
+            dn_tot = torch.where(a3, dn_tot + dn_prev, dn_tot)
+            up_tot = torch.where(a3, up_tot + up_prev, up_tot)
+            ratio = torch.where(active, ratio_fn(dn_prev, up_prev, dn_tot, up_tot), ratio)
+            n = n + active.to(torch.int32)
 
     return Solution(i_total=torch.cat([dn_tot, up_tot], dim=-1), i1=fb.i1, n_orders=n,
                     converged=ratio < tol, tau=fb.tau, idx_up=fb.idx_up,

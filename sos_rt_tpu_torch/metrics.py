@@ -1,12 +1,10 @@
 """Structured per-solve metrics (counterpart of ``sos_rt_tpu/metrics.py``).
 
 Order-count statistics, convergence counts and, given a wall time,
-columns per second, as one dict; :func:`emit` prints it as a JSON line.
+columns per second, as one dict.
 """
 from __future__ import annotations
 
-import json
-import sys
 from typing import Any, Dict
 
 import torch
@@ -33,11 +31,6 @@ def solution_metrics(sol, wall_s: float | None = None,
             m["col_per_s_per_chip"] = round(batch / wall_s / max(n_devices, 1), 1)
         m["n_devices"] = n_devices
     return m
-
-
-def emit(m: Dict[str, Any], file=None, label: str = "metrics") -> None:
-    """Print one JSON metrics line (stderr by default)."""
-    print(json.dumps({label: m}), file=file or sys.stderr, flush=True)
 
 
 def block_until_ready(sol):

@@ -50,6 +50,7 @@ from sos_rt_tpu_torch.ops.megakernel import (
     band_validity, bc_matrix, make_i1_block, mega_call, ratio_rows_tile,
     split_parts, stencil_taps, tc_operator)
 from sos_rt_tpu_torch.ops.precision import split_bf16
+from sos_rt_tpu_torch.spans import LOOP_COND, ORDER, span
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _MM_CODE = {"highest": 0, "bf16x3": 1, "bf16x5": 2}
@@ -457,16 +458,17 @@ def _loop_on(ratio, n, tol: float, max_orders: int, ab: frozenset) -> bool:
     alone, under 'sccond' column 0's count alone.  'sccond' without
     'noconv' raises once column 0 has converged short of max_orders: its
     count stops there, so that loop would never end (the TPU engine's
-    does not)."""
-    if "sccond" in ab:
-        go, stuck = torch.stack([n[0] < max_orders, ratio[0] < tol]).tolist()
-        if go and stuck and "noconv" not in ab:
-            raise RuntimeError("ablate 'sccond': column 0 converged before max_orders, "
-                               "so the loop would never end; add 'noconv'")
-        return bool(go)
-    if "noconv" in ab:
-        return bool((n.max() < max_orders).item())
-    return bool(((ratio >= tol).any() & (n.max() < max_orders)).item())
+    does not).  Each read runs in the span ``sos.loop_cond``."""
+    with span(LOOP_COND):
+        if "sccond" in ab:
+            go, stuck = torch.stack([n[0] < max_orders, ratio[0] < tol]).tolist()
+            if go and stuck and "noconv" not in ab:
+                raise RuntimeError("ablate 'sccond': column 0 converged before max_orders, "
+                                   "so the loop would never end; add 'noconv'")
+            return bool(go)
+        if "noconv" in ab:
+            return bool((n.max() < max_orders).item())
+        return bool(((ratio >= tol).any() & (n.max() < max_orders)).item())
 
 
 def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
@@ -480,10 +482,11 @@ def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
     while any column's ratio is ≥ tol and no column has reached
     max_orders; each column accumulates only while it is active, so its
     result does not depend on the other columns of the block.  One host
-    sync per order reads the loop condition.  Returns (toa_dn, toa_up,
-    srf_dn, srf_up (C, Mp), stats (3, C)), or with ``full`` (itot_dn,
-    itot_up (L, C, Mp), stats).  ``ab`` (STREAM_ABLATE_FLAGS) cuts stages
-    out, as the TPU engine's loop does; results are wrong."""
+    sync per order reads the loop condition; each order runs in the span
+    ``sos.order``.  Returns (toa_dn, toa_up, srf_dn, srf_up (C, Mp), stats
+    (3, C)), or with ``full`` (itot_dn, itot_up (L, C, Mp), stats).  ``ab``
+    (STREAM_ABLATE_FLAGS) cuts stages out, as the TPU engine's loop does;
+    results are wrong."""
     if i1dn is None:
         fdn, fup = passI(pack, tiles, cpar, ops)
     else:
@@ -499,29 +502,30 @@ def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
     ab = frozenset(ab)
     ab_a, ab_b = ab & set(PASS_A_FLAGS), ab & set(PASS_B_FLAGS)
     while _loop_on(ratio, n, tol, max_orders, ab):
-        active = (ratio >= tol).to(dtype)
-        if "nopassA" in ab:
-            sdn, jnup = fdn, fup
-        else:
-            sdn, jnup = passA(pack, fdn, fup, ops, ab_a)
-        if "nopassB" in ab:
-            fdn, fup = sdn, jnup
-        else:
-            fdn, fup = passB(pack, sdn, jnup, cpar, ops, ab_b)
-        del sdn, jnup       # free two planes before the next passA allocates
-        a2 = active[:, None]
-        if "notiles" not in ab:
-            t_dn = t_dn + a2 * fdn[0]
-            t_up = t_up + a2 * fup[0]
-            s_dn = s_dn + a2 * fdn[L - 1]
-            s_up = s_up + a2 * fup[L - 1]
-        if full:
-            acc[0].add_(a2 * fdn)
-            acc[1].add_(a2 * fup)
-        if "noratio" not in ab:
-            rnew = ratio_rows_tile(fup[0], t_up, fdn[L - 1], s_dn, real)
-            ratio = torch.where(active > 0.5, rnew, ratio)
-        n = n + (1.0 if "noconv" in ab else active)
+        with span(ORDER):
+            active = (ratio >= tol).to(dtype)
+            if "nopassA" in ab:
+                sdn, jnup = fdn, fup
+            else:
+                sdn, jnup = passA(pack, fdn, fup, ops, ab_a)
+            if "nopassB" in ab:
+                fdn, fup = sdn, jnup
+            else:
+                fdn, fup = passB(pack, sdn, jnup, cpar, ops, ab_b)
+            del sdn, jnup       # free two planes before the next passA allocates
+            a2 = active[:, None]
+            if "notiles" not in ab:
+                t_dn = t_dn + a2 * fdn[0]
+                t_up = t_up + a2 * fup[0]
+                s_dn = s_dn + a2 * fdn[L - 1]
+                s_up = s_up + a2 * fup[L - 1]
+            if full:
+                acc[0].add_(a2 * fdn)
+                acc[1].add_(a2 * fup)
+            if "noratio" not in ab:
+                rnew = ratio_rows_tile(fup[0], t_up, fdn[L - 1], s_dn, real)
+                ratio = torch.where(active > 0.5, rnew, ratio)
+            n = n + (1.0 if "noconv" in ab else active)
     stats = torch.empty((3, C), dtype=dtype, device=fdn.device)
     stats[ST_N], stats[ST_CONV], stats[ST_RATIO] = n, (ratio < tol).to(dtype), ratio
     if full:

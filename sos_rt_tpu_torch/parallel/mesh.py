@@ -31,6 +31,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from sos_rt_tpu_torch.config import GridSpec, Scene, SolverOptions, resolve_device
 from sos_rt_tpu_torch.solver import PhaseTables, solve_batch_reference
+from sos_rt_tpu_torch.spans import MESH_GATHER, span
 
 
 def mesh_device_type(device=None) -> str:
@@ -186,9 +187,10 @@ def solve_shards(data, scenes: Scene, tables: PhaseTables, solve):
         raise ValueError(f"batch {b} not divisible by the mesh's 'data' axis {size}")
     sl = slice(place * b // size, (place + 1) * b // size)
     part = solve(take_columns(scenes, sl), tables.take(sl))
-    return dataclasses.replace(part, **{
-        f.name: all_gather_rows(getattr(part, f.name), group, size)
-        for f in dataclasses.fields(part) if getattr(part, f.name) is not None})
+    with span(MESH_GATHER):
+        return dataclasses.replace(part, **{
+            f.name: all_gather_rows(getattr(part, f.name), group, size)
+            for f in dataclasses.fields(part) if getattr(part, f.name) is not None})
 
 
 def solve_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,

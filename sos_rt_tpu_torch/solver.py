@@ -18,10 +18,11 @@ Per order (the reference's while-loop body, main_lambertian.py:311-460):
 
 Everything that does not depend on Jₙ is computed once before the order
 loop (:func:`_setup_column`).  The stages run inside the JAX package's
-named scopes, as ``torch.profiler.record_function`` ranges:
-``sos.first_order``, and per order ``sos.source_jn``, ``sos.down_sweep``
-and ``sos.up_sweep_bc`` (``tools/profile.py`` reads them).  The loop runs on the host with one sync per
-order.  The products are matrix products, but in float32 'bf16x3' /
+named scopes, as the spans of ``spans.py`` (``torch.profiler.
+record_function`` ranges): ``sos.first_order``, and per order
+``sos.source_jn``, ``sos.down_sweep`` and ``sos.up_sweep_bc``
+(``tools/profile.py`` reads them).  The loop runs on the host with one
+sync per order.  The products are matrix products, but in float32 'bf16x3' /
 'bf16x5' on the card, where the source is one launch of the fused engine's
 source kernel an order (``ops/fused_source.py``); on the CPU, and with
 ``shard_tables`` (each rank holds only some of the operators' columns), the
@@ -36,7 +37,6 @@ from typing import Any
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from sos_rt_tpu_torch.config import (GridSpec, Scene, SolverOptions,
                                      full_precision_matmul, resolve_device,
@@ -58,6 +58,7 @@ from sos_rt_tpu_torch.ops.sweeps import (
     smooth_up_rows,
     stencils_for,
 )
+from sos_rt_tpu_torch.spans import DOWN_SWEEP, FIRST_ORDER, SOURCE_JN, UP_SWEEP_BC, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +188,7 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     w_atm = dtau_atm / (dtau_atm + dtau_aer)
     w_aer = dtau_aer / (dtau_atm + dtau_aer)
 
-    with record_function("sos.first_order"):
+    with span(FIRST_ORDER):
         i1 = first_order(opts.surface, tau, mu, M, sc.mu0, sc.grd_alb, sc.alb_atm,
                          sc.alb_aer, tables.p0_atm, tables.p_atm, tables.p0_aer,
                          tables.p_aer, idx_up, idx_down, w_atm, w_aer, w_mu)
@@ -266,7 +267,7 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     grd = sc.grd_alb[:, None]
 
     def source_fn(in_prev):
-        with record_function("sos.source_jn"):
+        with span(SOURCE_JN):
             return source(in_prev)
 
     def compute_down(jn):
@@ -315,9 +316,9 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
 
     def order_step(in_prev):
         jn = source_fn(in_prev)
-        with record_function("sos.down_sweep"):
+        with span(DOWN_SWEEP):
             down = compute_down(jn)
-        with record_function("sos.up_sweep_bc"):
+        with span(UP_SWEEP_BC):
             up = compute_up(jn, down)
         return torch.cat([down, up[:, :, M:]], dim=2)
 

@@ -26,6 +26,8 @@ import torch.distributed as dist
 
 from sos_rt_tpu_torch import metrics as _metrics
 from sos_rt_tpu_torch.config import resolve_device, torch_dtype
+from sos_rt_tpu_torch.spans import (SWEEP_BARRIER, SWEEP_LOAD, SWEEP_SHARD, SWEEP_SOLVE,
+                                    SWEEP_TABLES, span)
 
 
 def build_sweep_batch(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
@@ -42,6 +44,12 @@ def build_sweep_batch(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
     from the TPU package's (which draws the same ranges from its own
     framework's generator).  Returns (scenes, tables) on ``device``.
     """
+    return _sweep_batch(preset, batch, seed, mu0_pool, dtype, device)
+
+
+def _sweep_batch(preset, batch, seed, mu0_pool, dtype, device, stages=None):
+    """:func:`build_sweep_batch`, with the tables' seconds added to
+    ``stages`` where it is given (:func:`~sos_rt_tpu_torch.spans.span`)."""
     from sos_rt_tpu_torch.parallel import broadcast_scene
     from sos_rt_tpu_torch.solver import PhaseTables
 
@@ -60,14 +68,16 @@ def build_sweep_batch(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
         # the pool rounded to the compute dtype, as the tables' dtype is
         mu0 = torch.as_tensor(pool).to(dtype)[idx].to(torch.float64)
         scenes = dataclasses.replace(scenes, mu0=mu0.to(device))
-        tables = PhaseTables.from_models_batched_mu0(
-            preset.grid, pool, atm=preset.atm, aer=preset.aer, dtype=dtype,
-            device=device)
-        tables = tables.take(torch.as_tensor(idx, device=device))
-    else:
-        tables = PhaseTables.from_models(
-            preset.grid, float(np.asarray(preset.scene.mu0)),
-            atm=preset.atm, aer=preset.aer, dtype=dtype, device=device)
+    with span(SWEEP_TABLES, into=stages):
+        if mu0_pool > 0:
+            tables = PhaseTables.from_models_batched_mu0(
+                preset.grid, pool, atm=preset.atm, aer=preset.aer, dtype=dtype,
+                device=device)
+            tables = tables.take(torch.as_tensor(idx, device=device))
+        else:
+            tables = PhaseTables.from_models(
+                preset.grid, float(np.asarray(preset.scene.mu0)),
+                atm=preset.atm, aer=preset.aer, dtype=dtype, device=device)
     return scenes, tables
 
 
@@ -95,6 +105,12 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
               log=None, save_orders: bool = False,
               sort: str = "predict", device=None) -> Dict[str, Any]:
     """Run a (resumable) sweep; returns the aggregated metrics dict.
+
+    Its ``wall_s`` and ``col_per_s`` count only the solve calls: no
+    tables, shards or ``load_sweep``.  ``stages_s`` holds the seconds of
+    the sweep's spans (:mod:`sos_rt_tpu_torch.spans`) by name:
+    ``sos.sweep.tables``, ``sos.sweep.solve``, ``sos.sweep.shard`` (the
+    shard writer only) and ``sos.sweep.load``, where they ran.
 
     ``chunk > 0`` with ``out_dir``: solve ``chunk`` columns at a time,
     write one npz shard per chunk plus ``index.json``; ``resume=True``
@@ -159,13 +175,16 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
                           block_b=block_b, sort=sort, device=device)
         return _metrics.block_until_ready(sol), {}
 
-    scenes, tables = build_sweep_batch(preset, batch, seed, mu0_pool, device=device)
+    stages: Dict[str, float] = {}
+    scenes, tables = _sweep_batch(preset, batch, seed, mu0_pool, None, device, stages)
     if chunk <= 0 or out_dir is None:
         t0 = time.perf_counter()
-        sol, _ = solve(scenes, tables)
+        with span(SWEEP_SOLVE, into=stages):
+            sol, _ = solve(scenes, tables)
         m = _metrics.solution_metrics(sol, time.perf_counter() - t0, n_devices=n_devices)
         m["engine"] = engine
         m["outputs"] = outputs
+        m["stages_s"] = _rounded(stages)
         return m
 
     if writer:
@@ -203,21 +222,23 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
             continue
         sl = slice(i * chunk, min((i + 1) * chunk, batch))
         t0 = time.perf_counter()
-        sol, extra = solve(take_columns(scenes, sl), tables.take(sl))
+        with span(SWEEP_SOLVE, into=stages):
+            sol, extra = solve(take_columns(scenes, sl), tables.take(sl))
         dt = time.perf_counter() - t0
         wall += dt
         solved_cols += sl.stop - sl.start
         done.add(i)
         if writer:
-            # np.savez appends .npz if missing: keep the suffix on the temp
-            tmp = _shard_path(out_dir, i)[:-4] + ".tmp.npz"
-            np.savez_compressed(tmp, **_summary_arrays(sol), **extra)
-            os.replace(tmp, _shard_path(out_dir, i))
-            index = {"spec": spec, "n_chunks": n_chunks, "completed": sorted(done)}
-            tmp_idx = index_path + ".tmp"
-            with open(tmp_idx, "w") as f:
-                json.dump(index, f)
-            os.replace(tmp_idx, index_path)
+            with span(SWEEP_SHARD, into=stages):
+                # np.savez appends .npz if missing: keep the suffix on the temp
+                tmp = _shard_path(out_dir, i)[:-4] + ".tmp.npz"
+                np.savez_compressed(tmp, **_summary_arrays(sol), **extra)
+                os.replace(tmp, _shard_path(out_dir, i))
+                index = {"spec": spec, "n_chunks": n_chunks, "completed": sorted(done)}
+                tmp_idx = index_path + ".tmp"
+                with open(tmp_idx, "w") as f:
+                    json.dump(index, f)
+                os.replace(tmp_idx, index_path)
         cm = _metrics.solution_metrics(sol, dt, n_devices=n_devices)
         log(f"shard {i + 1}/{n_chunks}: {cm['batch']} columns in "
             f"{dt:.2f}s ({cm.get('col_per_s', 0):,.0f} col/s), "
@@ -227,12 +248,13 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
             break
 
     if mesh is not None:
-        dist.barrier()          # the first rank has written every shard
+        with span(SWEEP_BARRIER):
+            dist.barrier()      # the first rank has written every shard
     m: Dict[str, Any] = {"engine": "orders" if save_orders else engine,
                          "outputs": outputs, "n_chunks": n_chunks, "n_completed": len(done),
                          "complete": len(done) == n_chunks, "n_devices": n_devices}
     if len(done) == n_chunks:
-        res = load_sweep(out_dir)
+        res = _load_sweep(out_dir, stages)
         n_tot = int(res["n_orders"].shape[0])
         conv = int(res["converged"].sum())
         m.update(batch=n_tot, orders_max=int(res["n_orders"].max()),
@@ -241,20 +263,32 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
     if wall > 0 and solved_now:
         m["wall_s"] = round(wall, 4)
         m["col_per_s"] = round(solved_cols / wall, 1)
+    m["stages_s"] = _rounded(stages)
     return m
+
+
+def _rounded(stages: Dict[str, float]) -> Dict[str, float]:
+    return {k: round(v, 4) for k, v in stages.items()}
 
 
 def load_sweep(out_dir: str) -> Dict[str, np.ndarray]:
     """Concatenate a completed sweep's shards into one result dict."""
-    with open(os.path.join(out_dir, "index.json")) as f:
-        index = json.load(f)
-    n = index["n_chunks"]
-    missing = [i for i in range(n)
-               if not os.path.exists(_shard_path(out_dir, i))]
-    if missing:
-        raise ValueError(f"sweep incomplete: missing shards {missing}")
-    parts = []
-    for i in range(n):
-        with np.load(_shard_path(out_dir, i)) as z:
-            parts.append({k: z[k] for k in z.files})
-    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return _load_sweep(out_dir)
+
+
+def _load_sweep(out_dir: str, stages=None) -> Dict[str, np.ndarray]:
+    """:func:`load_sweep`, with its seconds added to ``stages`` where it is
+    given."""
+    with span(SWEEP_LOAD, into=stages):
+        with open(os.path.join(out_dir, "index.json")) as f:
+            index = json.load(f)
+        n = index["n_chunks"]
+        missing = [i for i in range(n)
+                   if not os.path.exists(_shard_path(out_dir, i))]
+        if missing:
+            raise ValueError(f"sweep incomplete: missing shards {missing}")
+        parts = []
+        for i in range(n):
+            with np.load(_shard_path(out_dir, i)) as z:
+                parts.append({k: z[k] for k in z.files})
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}

@@ -32,10 +32,12 @@ import time
 
 import torch
 
-SCOPES = ("sos.first_order", "sos.source_jn", "sos.down_sweep", "sos.up_sweep_bc")
+from sos_rt_tpu_torch import spans
+
+SCOPES = (spans.FIRST_ORDER, spans.SOURCE_JN, spans.DOWN_SWEEP, spans.UP_SWEEP_BC)
 # the span of the recorded call in :func:`trace`'s window; :func:`read_trace`
 # reads only what the host starts inside it and the device work it launched
-RECORDED = "sos.recorded_call"
+RECORDED = spans.RECORDED_CALL
 # seconds between the recorded step's opening launch and the recorded call:
 # the profiler drops, at times, the device records of the kernels that run
 # in the first milliseconds of a window (``tools/trace_windows.py`` counts
@@ -172,7 +174,7 @@ def trace(fn, out: str | None, label: str, device, warm: bool = True,
     ``opening`` seconds before the recorded call, whose span
     (:data:`RECORDED`) bounds the table's window; raises RuntimeError where
     the recorded call shows no device time."""
-    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     path = os.path.join(out, f"{label}.json") if out is not None else None
@@ -196,7 +198,7 @@ def trace(fn, out: str | None, label: str, device, warm: bool = True,
             torch.ones(1, device=device).add_(1.0)
             _sync(device)
             time.sleep(opening)
-        with record_function(RECORDED):
+        with spans.span(RECORDED):
             t0 = time.perf_counter()
             fn()
             _sync(device)

@@ -76,7 +76,8 @@ def test_chunked_sweep_resume_and_spec_check(small, tmp_path):
     part = run_sweep(small, 10, stop_after_chunks=1, **kw)      # "killed" after one
     assert part == {"engine": "mega", "outputs": "summary", "n_chunks": 3,
                     "n_completed": 1, "complete": False, "n_devices": 1,
-                    "wall_s": part["wall_s"], "col_per_s": part["col_per_s"]}
+                    "wall_s": part["wall_s"], "col_per_s": part["col_per_s"],
+                    "stages_s": part["stages_s"]}
     with pytest.raises(ValueError, match="incomplete"):
         load_sweep(out)
     first = os.path.getmtime(os.path.join(out, "shard_00000.npz"))
