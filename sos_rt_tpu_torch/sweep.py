@@ -4,7 +4,8 @@
   µ0-pooled phase tables (P0(µ, µ0) built per distinct µ0 and gathered
   per column; the P matrices are shared).
 - :func:`run_sweep` — chunked, **resumable** execution: results are
-  written as per-chunk npz shards with an index JSON; a re-run with
+  written as per-chunk npz shards (:mod:`sos_rt_tpu_torch.npz`) with an
+  index JSON; a re-run with
   ``resume=True`` skips completed shards, so a killed sweep loses at most
   one chunk.  Returns structured metrics per run, logs them per chunk.
 - :func:`load_sweep` — concatenate a completed sweep's shards.
@@ -14,6 +15,7 @@ either package's ``load_sweep`` reads a directory the other wrote.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -26,6 +28,7 @@ import torch.distributed as dist
 
 from sos_rt_tpu_torch import metrics as _metrics
 from sos_rt_tpu_torch.config import resolve_device, torch_dtype
+from sos_rt_tpu_torch.npz import NpzWriter
 from sos_rt_tpu_torch.spans import (SWEEP_BARRIER, SWEEP_LOAD, SWEEP_SHARD, SWEEP_SOLVE,
                                     SWEEP_TABLES, span)
 
@@ -113,8 +116,11 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
     shard writer only) and ``sos.sweep.load``, where they ran.
 
     ``chunk > 0`` with ``out_dir``: solve ``chunk`` columns at a time,
-    write one npz shard per chunk plus ``index.json``; ``resume=True``
-    skips shards already recorded in the index (kill-and-resume safe:
+    write one npz shard per chunk plus ``index.json``, deflated on one
+    pool of host threads a run (:class:`sos_rt_tpu_torch.npz.NpzWriter`);
+    the metrics' ``shard_threads`` and ``shard_blocks`` are its size and
+    the deflate blocks it wrote (0 on ranks that write no shard).
+    ``resume=True`` skips shards already recorded in the index (kill-and-resume safe:
     the index is rewritten atomically after each shard).
     ``stop_after_chunks > 0`` stops early after that many *newly solved*
     chunks.  The last chunk is solved at its own size.
@@ -217,42 +223,45 @@ def run_sweep(preset, batch: int, seed: int = 0, mu0_pool: int = 0,
     wall = 0.0
     solved_now = 0
     solved_cols = 0
-    for i in range(n_chunks):
-        if i in done:
-            continue
-        sl = slice(i * chunk, min((i + 1) * chunk, batch))
-        t0 = time.perf_counter()
-        with span(SWEEP_SOLVE, into=stages):
-            sol, extra = solve(take_columns(scenes, sl), tables.take(sl))
-        dt = time.perf_counter() - t0
-        wall += dt
-        solved_cols += sl.stop - sl.start
-        done.add(i)
-        if writer:
-            with span(SWEEP_SHARD, into=stages):
-                # np.savez appends .npz if missing: keep the suffix on the temp
-                tmp = _shard_path(out_dir, i)[:-4] + ".tmp.npz"
-                np.savez_compressed(tmp, **_summary_arrays(sol), **extra)
-                os.replace(tmp, _shard_path(out_dir, i))
-                index = {"spec": spec, "n_chunks": n_chunks, "completed": sorted(done)}
-                tmp_idx = index_path + ".tmp"
-                with open(tmp_idx, "w") as f:
-                    json.dump(index, f)
-                os.replace(tmp_idx, index_path)
-        cm = _metrics.solution_metrics(sol, dt, n_devices=n_devices)
-        log(f"shard {i + 1}/{n_chunks}: {cm['batch']} columns in "
-            f"{dt:.2f}s ({cm.get('col_per_s', 0):,.0f} col/s), "
-            f"orders max {cm['orders_max']}")
-        solved_now += 1
-        if stop_after_chunks and solved_now >= stop_after_chunks:
-            break
+    # the writer rank's shard writer, one pool of threads for every shard
+    with (NpzWriter() if writer else contextlib.nullcontext()) as shards:
+        for i in range(n_chunks):
+            if i in done:
+                continue
+            sl = slice(i * chunk, min((i + 1) * chunk, batch))
+            t0 = time.perf_counter()
+            with span(SWEEP_SOLVE, into=stages):
+                sol, extra = solve(take_columns(scenes, sl), tables.take(sl))
+            dt = time.perf_counter() - t0
+            wall += dt
+            solved_cols += sl.stop - sl.start
+            done.add(i)
+            if writer:
+                with span(SWEEP_SHARD, into=stages):
+                    tmp = _shard_path(out_dir, i)[:-4] + ".tmp.npz"
+                    shards.save(tmp, **_summary_arrays(sol), **extra)
+                    os.replace(tmp, _shard_path(out_dir, i))
+                    index = {"spec": spec, "n_chunks": n_chunks, "completed": sorted(done)}
+                    tmp_idx = index_path + ".tmp"
+                    with open(tmp_idx, "w") as f:
+                        json.dump(index, f)
+                    os.replace(tmp_idx, index_path)
+            cm = _metrics.solution_metrics(sol, dt, n_devices=n_devices)
+            log(f"shard {i + 1}/{n_chunks}: {cm['batch']} columns in "
+                f"{dt:.2f}s ({cm.get('col_per_s', 0):,.0f} col/s), "
+                f"orders max {cm['orders_max']}")
+            solved_now += 1
+            if stop_after_chunks and solved_now >= stop_after_chunks:
+                break
 
     if mesh is not None:
         with span(SWEEP_BARRIER):
             dist.barrier()      # the first rank has written every shard
     m: Dict[str, Any] = {"engine": "orders" if save_orders else engine,
                          "outputs": outputs, "n_chunks": n_chunks, "n_completed": len(done),
-                         "complete": len(done) == n_chunks, "n_devices": n_devices}
+                         "complete": len(done) == n_chunks, "n_devices": n_devices,
+                         "shard_threads": shards.threads if writer else 0,
+                         "shard_blocks": shards.blocks if writer else 0}
     if len(done) == n_chunks:
         res = _load_sweep(out_dir, stages)
         n_tot = int(res["n_orders"].shape[0])

@@ -76,6 +76,7 @@ def test_chunked_sweep_resume_and_spec_check(small, tmp_path):
     part = run_sweep(small, 10, stop_after_chunks=1, **kw)      # "killed" after one
     assert part == {"engine": "mega", "outputs": "summary", "n_chunks": 3,
                     "n_completed": 1, "complete": False, "n_devices": 1,
+                    "shard_threads": len(os.sched_getaffinity(0)), "shard_blocks": 4,
                     "wall_s": part["wall_s"], "col_per_s": part["col_per_s"],
                     "stages_s": part["stages_s"]}
     with pytest.raises(ValueError, match="incomplete"):
