@@ -44,11 +44,12 @@ def readings(cell, seed: int, requests: int, control: bool, device) -> dict:
         wl = cell.workload
         scenes, answers, p0_mu0 = entry.sample(int(wl["check"]["columns"]))
         block = int(wl["check"].get("block", 64))
-        ref = check.reference(cell.config, scenes, p0_mu0, device, block=block)
+        ref = check.reference(cell.config, scenes, p0_mu0, device, block=block,
+                              base=cell.base)
         out = {"seed": seed, "columns": len(p0_mu0), "program": check.numbers(answers, ref)}
         if control:
             ctl = check.reference(cell.config, scenes, p0_mu0, device, dtype="float32",
-                                  products="tf32", block=block)
+                                  products="tf32", block=block, base=cell.base)
             out["control"] = check.numbers(ctl, ref)
         return out
     finally:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from sosbench import spec
 from sosbench.reference import grid as ref_grid
 from sosbench.reference import phase, precision, solver
 
@@ -25,16 +26,17 @@ ROWS = ("i_toa", "i_surface")
 
 
 def reference(config: dict, scenes: dict, p0_mu0, device, dtype="float64",
-              products: str = "full", block: int = 64) -> dict:
+              products: str = "full", block: int = 64, base: str = spec.HERE) -> dict:
     """The reference's summary of ``scenes`` under ``config``, its P0 tables
-    at each column's ``p0_mu0``, in ``dtype`` with ``products``."""
+    at each column's ``p0_mu0``, in ``dtype`` with ``products``; the phase
+    models' files found under ``base`` (the cell's)."""
     import torch
 
     M, L = config["grid"]["nb_angles"], config["grid"]["nb_layers"]
     mu = ref_grid.mu_grid(M)
     uniq, inv = np.unique(np.asarray(p0_mu0, dtype=np.float64), return_inverse=True)
-    p0a, pa = phase.tables(config["atm"], mu, uniq)
-    p0r, pr = phase.tables(config["aer"], mu, uniq)
+    p0a, pa = phase.tables(config["atm"], mu, uniq, base)
+    p0r, pr = phase.tables(config["aer"], mu, uniq, base)
     with precision.products(products):
         return solver.solve(scenes, p0a[inv], pa, p0r[inv], pr, M, L,
                             surface=config["surface"], dtype=getattr(torch, dtype),

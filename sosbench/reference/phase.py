@@ -5,39 +5,22 @@ P0(µ) is the azimuth average of the scattering kernel K(µ_diff) between
 the solar direction (µ0, φ0 = 0) and (µ, φ) over φ ∈ [0, π] (25 points),
 normalised so ∫P0 dµ = 2; P(µ, µ') the same average between two stream
 directions, symmetrised, each column normalised so ∫P(:, n) dµ = 4.
-Kernels: Rayleigh, Henyey–Greenstein, and the FWC cloud's measured table
-(``data/fwc.npz``: 1001 points, µ ∈ [−1, 1], interpolated linearly).
+
+The kernels live one to a file, ``reference/models/<kind>.py`` under the
+benchmark's directory, found by the kind that a configuration's ``atm`` or
+``aer`` = [kind, params] names (``spec.phase_model``).  A model file
+exposes ``kernel(params) -> K``, where K maps an array of µ_diff to the
+kernel's values, and imports nothing of the program.  A configuration
+brings a new model by adding its file: nothing here changes.
 """
 from __future__ import annotations
 
-import functools
-import os
-
 import numpy as np
 
+from sosbench import spec
 from sosbench.reference.grid import trapz_weights
 
 NB_PHI = 25
-FWC_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "fwc.npz")
-
-
-@functools.lru_cache(maxsize=1)
-def _fwc_table():
-    with np.load(FWC_DATA) as z:
-        return z["mu"].copy(), z["phase"].copy()
-
-
-def kernel(kind: str, params: dict):
-    """The scattering kernel K(µ_diff) of a phase model."""
-    if kind == "rayleigh":
-        return lambda md: 0.75 * (1.0 + md * md)
-    if kind == "hg":
-        g = float(params["g"])
-        return lambda md: (1.0 - g * g) / (1.0 + g * g - 2.0 * g * md) ** 1.5
-    if kind == "fwc":
-        mu_tab, p_tab = _fwc_table()
-        return lambda md: np.interp(np.clip(md, -1.0, 1.0), mu_tab, p_tab)
-    raise ValueError(f"the reference has no phase model {kind!r}")
 
 
 def p0_table(k, mu: np.ndarray, mu0: float) -> np.ndarray:
@@ -67,9 +50,10 @@ def p_matrix(k, mu: np.ndarray, col_chunk: int = 64) -> np.ndarray:
     return 4.0 * p / (p.T @ trapz_weights(mu))[None, :]
 
 
-def tables(spec, mu: np.ndarray, mu0_values) -> tuple:
+def tables(model, mu: np.ndarray, mu0_values, base: str = spec.HERE) -> tuple:
     """(P0 (n, 2M) for each µ0 of ``mu0_values``, P (2M, 2M)) of the phase
-    model ``spec`` = [kind, params]."""
-    k = kernel(spec[0], spec[1])
+    model ``model`` = [kind, params], its file found under ``base``."""
+    kind, params = model
+    k = spec.phase_model(kind, base).kernel(params)
     return (np.stack([p0_table(k, mu, float(m0)) for m0 in np.atleast_1d(mu0_values)]),
             p_matrix(k, mu))

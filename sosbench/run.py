@@ -74,12 +74,13 @@ def route_faults(route: dict, delta: dict) -> list:
 class TracedRun:
     """What a per-layer metric reads: the ranks' trace readings, rank 0's
     request records, the ranks' launch-counter deltas, the window's peak
-    memory, and the cell's configuration."""
+    memory and its seconds on the host's clock, and the cell's
+    configuration."""
 
-    def __init__(self, cell, ranks, records, deltas, window_peak_bytes):
+    def __init__(self, cell, ranks, records, deltas, window_peak_bytes, wall=0.0):
         self.config = cell.config
         self.ranks, self.records, self.deltas = ranks, records, deltas
-        self.window_peak_bytes = window_peak_bytes
+        self.window_peak_bytes, self.wall = window_peak_bytes, wall
 
     def kernel_calls(self, name: str) -> int:
         return sum(k["calls"] for r in self.ranks for n, k in r["kernels"].items() if n.endswith(name))
@@ -96,28 +97,38 @@ class TracedRun:
         return np.concatenate([r["n_orders"] for r in self.records])
 
 
+SOLVE_TIMED = {"sweep_solve_columns_per_s"}   # end-to-end metrics that read SOLVE_S
+SOLVE_S = [0.0]   # this rank's seconds inside the program's parallel.solve_batch calls
+
+
 def wrap_spans(torch_mod):
     """Record the benchmark's spans around the program's layer calls:
     ``sosbench.solve_batch`` around ``sos_rt_tpu_torch.parallel.solve_batch``
-    (closed when the device has finished) and ``sosbench.predictor`` around
-    ``fused.predict_order_count``."""
+    (closed when the device has finished, its seconds added to
+    ``SOLVE_S``) and ``sosbench.predictor`` around
+    ``fused.predict_order_count``.  A second call wraps nothing again."""
     import sos_rt_tpu_torch.parallel as par
     from sos_rt_tpu_torch import fused
     from torch.profiler import record_function
 
+    if getattr(par.solve_batch, "sosbench_span", False):
+        return
     solve, predict = par.solve_batch, fused.predict_order_count
 
     def solve_batch(*a, **kw):
+        t0 = time.perf_counter()
         with record_function("sosbench.solve_batch"):
             out = solve(*a, **kw)
             if torch_mod.cuda.is_available():
                 torch_mod.cuda.synchronize()
-            return out
+        SOLVE_S[0] += time.perf_counter() - t0
+        return out
 
     def predict_order_count(*a, **kw):
         with record_function("sosbench.predictor"):
             return predict(*a, **kw)
 
+    solve_batch.sosbench_span = True
     par.solve_batch, fused.predict_order_count = solve_batch, predict_order_count
 
 
@@ -162,7 +173,7 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, rank: int = 0
         mesh = make_mesh(device=device.type)
         stages.append(("process group", time.monotonic()))
     wl = cell.workload
-    if traced:
+    if traced or SOLVE_TIMED & {m["name"] for m in cell.end_to_end}:
         wrap_spans(torch)
     entry = cell.entry().Entry(cell, seed, device, mesh)
     stages.append(("entry", time.monotonic()))
@@ -182,6 +193,7 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, rank: int = 0
 
         def body():
             before.update(counters())
+            SOLVE_S[0] = 0.0
             return window(entry, seconds, n_traced, mesh, dist)
 
         t_open = time.monotonic()
@@ -190,6 +202,7 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, rank: int = 0
             (records, wall), reading = trace.traced(torch, device, entry.warm, body)
         else:
             records, wall = body()
+        solve_s = SOLVE_S[0]
         delta = {k: v - before[k] for k, v in counters().items()}
         peak = window_peak = 0
         if on_card:
@@ -210,10 +223,12 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, rank: int = 0
         if rank != 0:
             return None
         result = {"attempted": len(records), "failed": 0}
+        log(f"window: {len(records)} requests, {wall:.4f} s, "
+            f"{solve_s:.4f} s in sosbench.solve_batch")
         if traced:
-            result["metrics"] = per_layer(cell, gathered, records, on_card)
+            result["metrics"] = per_layer(cell, gathered, records, on_card, wall)
         else:
-            result["metrics"] = end_to_end(cell, records, wall, t_open - T_START)
+            result["metrics"] = end_to_end(cell, records, wall, t_open - T_START, solve_s)
         result["device"] = {"platform": "gpu" if on_card else "cpu",
                             "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
                             "count": world,
@@ -231,7 +246,7 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, rank: int = 0
         # the check, once the window has closed and its peak has been read
         scenes, answers, p0_mu0 = entry.sample(int(wl["check"]["columns"]))
         ref = check.reference(cell.config, scenes, p0_mu0, device,
-                              block=int(wl["check"].get("block", 64)))
+                              block=int(wl["check"].get("block", 64)), base=cell.base)
         found = check.numbers(answers, ref)
         log("compared numbers (all): " + json.dumps(found))
         result["correct"], result["check"] = check.judge(found, wl["check"]["limits"])
@@ -245,17 +260,21 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, rank: int = 0
             dist.destroy_process_group()
 
 
-def end_to_end(cell, records, wall: float, setup_s: float) -> dict:
-    rate = sum(r["converged"] for r in records) / wall
+def end_to_end(cell, records, wall: float, setup_s: float, solve_s: float = 0.0) -> dict:
+    converged = sum(r["converged"] for r in records)
+    rate = converged / wall
     values = {"columns_per_s": rate, "sweep_columns_per_s": rate,
               "call_p90_ms": 1e3 * stats.percentile([r["wall_s"] for r in records], 90),
               "setup_s": setup_s}
+    if solve_s > 0:
+        values["sweep_solve_columns_per_s"] = converged / solve_s
     return {m["name"]: {"value": values[m["name"]], "unit": m["unit"]} for m in cell.end_to_end}
 
 
-def per_layer(cell, gathered, records, on_card: bool) -> dict:
+def per_layer(cell, gathered, records, on_card: bool, wall: float = 0.0) -> dict:
     run = TracedRun(cell, [g["reading"] for g in gathered] if on_card else [], records,
-                    [g["delta"] for g in gathered], max(g["window_peak"] for g in gathered))
+                    [g["delta"] for g in gathered], max(g["window_peak"] for g in gathered),
+                    wall)
     out = {}
     for m in cell.per_layer:
         reader = spec.layer_metric(m["name"], cell.base)

@@ -1,5 +1,13 @@
-"""Find a cell's files by name: its configuration, traffic, entry and
-per-layer metrics, and the lines of ``BENCHMARK.json`` that name them."""
+"""Find a cell's files by name: its configuration, traffic, entry,
+per-layer metrics and phase models, and the lines of ``BENCHMARK.json``
+that name them.
+
+A configuration file is JSON, in which a complex number is written as an
+object of exactly the two keys ``re`` and ``im``: ``{"re": 1.7, "im":
+0.03}`` is 1.7 + 0.03j.  ``config`` decodes every such object, wherever it
+sits, into a Python ``complex`` as it loads the file, so every reader (the
+entries, the check's reference, the tests) gets the same value.
+"""
 from __future__ import annotations
 
 import importlib.util
@@ -10,17 +18,25 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
 
-def read_json(path: str) -> dict:
+def read_json(path: str, object_hook=None) -> dict:
     with open(path) as fh:
-        return json.load(fh)
+        return json.load(fh, object_hook=object_hook)
 
 
 def benchmark(root: str = ROOT) -> dict:
     return read_json(os.path.join(root, "BENCHMARK.json"))
 
 
+COMPLEX_KEYS = {"re", "im"}
+
+
+def _complex(obj: dict):
+    return complex(obj["re"], obj["im"]) if set(obj) == COMPLEX_KEYS else obj
+
+
 def config(name: str, base: str = HERE) -> dict:
-    return read_json(os.path.join(base, "configs", f"{name}.json"))
+    """The configuration ``name``, its complex numbers decoded (see the module)."""
+    return read_json(os.path.join(base, "configs", f"{name}.json"), _complex)
 
 
 def traffic(name: str, base: str = HERE) -> dict:
@@ -47,6 +63,17 @@ def layer_metric(name: str, base: str = HERE):
     """The reader of the per-layer metric ``name``."""
     return _module(os.path.join(base, "layer_metrics", f"{name}.py"),
                    "sosbench_metric_" + name.replace(".", "_"))
+
+
+def phase_model(kind: str, base: str = HERE):
+    """The reference's phase model ``kind``: the file
+    ``reference/models/<kind>.py``, which exposes ``kernel(params)``."""
+    models = os.path.join(base, "reference", "models")
+    path = os.path.join(models, f"{kind}.py")
+    if os.path.dirname(kind) or not os.path.isfile(path):
+        have = sorted(f for f in os.listdir(models) if f.endswith(".py"))
+        raise ValueError(f"the reference has no phase model {kind!r}: {models} holds {have}")
+    return _module(path, f"sosbench_phase_model_{kind}")
 
 
 WORKLOAD_KEYS = {"route", "trace", "check"}

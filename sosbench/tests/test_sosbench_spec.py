@@ -7,9 +7,10 @@ import os
 import re
 import shutil
 
+import numpy as np
 import pytest
 
-from sosbench import spec
+from sosbench import check, spec, traffic_gen
 from sosbench.tests.helpers import BENCH_DIR, ROOT
 
 BENCH = spec.benchmark(ROOT)
@@ -90,16 +91,36 @@ def test_cell_refuses_a_second_copy(tmp_path, fault):
         spec.Cell("canonical.stream", BENCH, str(base))
 
 
-def test_new_cell_is_files_only(tmp_path):
+ISOTROPIC = '''"""Isotropic scattering, K = 1; reads back its one complex parameter."""
+import numpy as np
+
+
+def kernel(params):
+    if params["n"] != complex(1.7, 0.03):
+        raise ValueError(f"n = {params['n']!r}")
+    return np.ones_like
+'''
+
+
+@pytest.mark.parametrize("model", [None, "isotropic"])
+def test_new_cell_is_files_only(tmp_path, model):
     """A throwaway configuration, traffic, cell and per-layer metric, added
     as new files and entries beside copies of the existing ones, load by
-    their names; no existing file changes."""
+    their names; no existing file changes.  With ``model``, the
+    configuration's aerosol is a phase model of its own, a new file under
+    ``reference/models/`` with a complex parameter, and the check's
+    reference runs it at a tiny grid."""
     base = tmp_path / "sosbench"
     shutil.copytree(BENCH_DIR, base, ignore=shutil.ignore_patterns("tests", "__pycache__"))
     before = {p: open(os.path.join(base, p), "rb").read()
-              for d in ("configs", "traffic", "workloads", "layer_metrics")
-              for p in [os.path.join(d, f) for f in os.listdir(base / d)]}
+              for d in ("configs", "traffic", "workloads", "layer_metrics", "reference",
+                        "reference/models")
+              for p in [os.path.join(d, f) for f in os.listdir(base / d)]
+              if os.path.isfile(os.path.join(base, p))}
     cfg = dict(spec.config("hg_canonical", str(base)), name="hg_small", grid={"nb_angles": 64, "nb_layers": 128})
+    if model:
+        (base / "reference" / "models" / f"{model}.py").write_text(ISOTROPIC)
+        cfg.update(grid={"nb_angles": 8, "nb_layers": 16}, aer=[model, {"n": {"re": 1.7, "im": 0.03}}])
     (base / "configs" / "hg_small.json").write_text(json.dumps(cfg))
     tr = dict(spec.traffic("closed_b256", str(base)), batch=64)
     (base / "traffic" / "closed_b64.json").write_text(json.dumps(tr))
@@ -115,8 +136,45 @@ def test_new_cell_is_files_only(tmp_path):
                                "source": "program_counter", "layer": "test", "moves": "columns_per_s",
                                "workloads": ["small.stream"]})
     cell = spec.Cell("small.stream", bench, str(base))
-    assert cell.config["grid"]["nb_angles"] == 64 and cell.traffic["batch"] == 64
+    assert cell.traffic["batch"] == 64
+    if model:
+        import torch
+
+        assert cell.config["aer"][1]["n"] == complex(1.7, 0.03)
+        rng = np.random.default_rng(5)
+        scenes = traffic_gen.scenes(cell.config, cell.traffic, rng, 4)
+        ref = check.reference(cell.config, scenes, scenes["mu0"], torch.device("cpu"),
+                              base=cell.base)
+        for k in check.ROWS:
+            assert ref[k].shape == (4, 16) and np.isfinite(ref[k]).all() and np.abs(ref[k]).max() > 0
+    else:
+        assert cell.config["grid"]["nb_angles"] == 64
     assert "calls_traced" in [m["name"] for m in cell.per_layer]
     assert spec.layer_metric("calls_traced", str(base)).UNIT == "calls"
     after = {p: open(os.path.join(base, p), "rb").read() for p in before}
     assert after == before
+
+
+def test_unknown_phase_model_names_the_directory():
+    with pytest.raises(ValueError, match=r"no phase model 'nosuch'.*reference/models.*hg\.py"):
+        spec.phase_model("nosuch")
+    cfg = dict(spec.config("hg_canonical"), grid={"nb_angles": 8, "nb_layers": 16}, aer=["nosuch", {}])
+    with pytest.raises(ValueError, match="reference/models"):
+        check.reference(cfg, traffic_gen.scenes(cfg, {}, None, 2), [0.5, 0.5], "cpu")
+
+
+def test_complex_parameter_round_trips(tmp_path):
+    """``{"re", "im"}`` objects in a configuration file load as Python
+    complex numbers wherever they sit; other objects stay as they are."""
+    (tmp_path / "configs").mkdir()
+    n = complex(1.7, 0.03)
+    data = {"name": "c", "aer": ["lognormal", {"indx": {"re": n.real, "im": n.imag},
+                                               "list": [{"re": 0, "im": -1.5}],
+                                               "other": {"re": 1.0, "im": 2.0, "x": 3}}]}
+    (tmp_path / "configs" / "c.json").write_text(json.dumps(data))
+    params = spec.config("c", str(tmp_path))["aer"][1]
+    assert type(params["indx"]) is complex and params["indx"] == n
+    assert params["list"] == [complex(0, -1.5)]
+    assert params["other"] == {"re": 1.0, "im": 2.0, "x": 3}
+    for name in ("hg_canonical", "fwc_sweep"):
+        assert spec.config(name) == spec.read_json(os.path.join(BENCH_DIR, "configs", f"{name}.json"))

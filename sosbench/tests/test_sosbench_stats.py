@@ -95,3 +95,20 @@ def test_end_to_end_arithmetic():
     assert m["sweep_columns_per_s"]["value"] == pytest.approx(20.0)
     assert m["call_p90_ms"]["value"] == pytest.approx(1e3 * np.percentile([r["wall_s"] for r in records], 90))
     assert m["setup_s"] == {"value": 12.5, "unit": "s"}
+
+
+def test_solve_rate_and_whole_sweep_rate_of_the_mesh_cell():
+    """``sweep_solve_columns_per_s`` counts the window's converged columns
+    over the seconds inside ``solve_batch``; ``sweep_columns_per_s.mesh``
+    counts them over the traced window's wall."""
+    cell = SimpleNamespace(end_to_end=[{"name": "sweep_solve_columns_per_s", "unit": "columns/s"}])
+    records = [{"wall_s": 1.0, "converged": 10} for _ in range(4)]
+    m = run.end_to_end(cell, records, 5.0, 12.5, solve_s=0.5)
+    assert m["sweep_solve_columns_per_s"]["value"] == pytest.approx(80.0)
+    with pytest.raises(KeyError):
+        run.end_to_end(cell, records, 5.0, 12.5)           # no solve timed: no number
+    from sosbench import spec
+    traced = run.TracedRun(SimpleNamespace(config={}), [], records, [{}], 0, 8.0)
+    assert spec.layer_metric("sweep_columns_per_s.mesh").read(traced) == pytest.approx(5.0)
+    assert spec.layer_metric("sweep_columns_per_s.mesh").read(
+        run.TracedRun(SimpleNamespace(config={}), [], [], [{}], 0, 8.0)) is None
