@@ -17,6 +17,7 @@ import numpy as np
 from sos_rt_tpu_torch.models.analytic import henyey_greenstein, isotropic, rayleigh
 from sos_rt_tpu_torch.models.fwc import fwc
 from sos_rt_tpu_torch.models.mie_tables import log_normal_mie, mie
+from sos_rt_tpu_torch.spans import TABLES_BUILD, span
 
 Tables = Tuple[np.ndarray, np.ndarray]
 
@@ -63,7 +64,10 @@ def _cache_key(kind: str, mu: np.ndarray, mu0: float, params: dict) -> str:
 
 def build_phase_tables(kind: str, mu: np.ndarray, mu0: float, *,
                        cache: bool = True, **params) -> Tables:
-    """Build (or load from the content-addressed cache) the (P0, P) tables."""
+    """Build (or load from the content-addressed cache) the (P0, P) tables.
+    A build runs in the span ``sos.tables.build``; ``builds`` and
+    ``cache_hits`` (attributes of this function) count builds and the
+    loads that the cache answered."""
     kind = _ALIASES.get(kind, kind)
     if kind not in _REGISTRY:
         raise ValueError(f"unknown phase model {kind!r}; available: {available_models()}")
@@ -77,9 +81,12 @@ def build_phase_tables(kind: str, mu: np.ndarray, mu0: float, *,
         path = os.path.join(_cache_dir(), f"{kind}_{key}.npz")
         if os.path.exists(path):
             with np.load(path) as z:
+                build_phase_tables.cache_hits += 1
                 return z["p0"].copy(), z["p"].copy()
 
-    p0, p = builder(np.asarray(mu, dtype=np.float64), float(mu0), **params)
+    with span(TABLES_BUILD):
+        p0, p = builder(np.asarray(mu, dtype=np.float64), float(mu0), **params)
+    build_phase_tables.builds += 1
 
     if cache:
         os.makedirs(_cache_dir(), exist_ok=True)
@@ -87,3 +94,7 @@ def build_phase_tables(kind: str, mu: np.ndarray, mu0: float, *,
         np.savez_compressed(tmp, p0=p0, p=p)
         os.replace(tmp, path)
     return p0, p
+
+
+build_phase_tables.builds = 0
+build_phase_tables.cache_hits = 0

@@ -50,7 +50,7 @@ from sos_rt_tpu_torch.ops.megakernel import (
     band_validity, bc_matrix, make_i1_block, mega_call, ratio_rows_tile,
     split_parts, stencil_taps, tc_operator)
 from sos_rt_tpu_torch.ops.precision import split_bf16
-from sos_rt_tpu_torch.spans import LOOP_COND, ORDER, span
+from sos_rt_tpu_torch.spans import FIRST_ORDER, LOOP_COND, ORDER, span
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _MM_CODE = {"highest": 0, "bf16x3": 1, "bf16x5": 2}
@@ -482,13 +482,14 @@ def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
     while any column's ratio is ≥ tol and no column has reached
     max_orders; each column accumulates only while it is active, so its
     result does not depend on the other columns of the block.  One host
-    sync per order reads the loop condition; each order runs in the span
-    ``sos.order``.  Returns (toa_dn, toa_up, srf_dn, srf_up (C, Mp), stats
-    (3, C)), or with ``full`` (itot_dn, itot_up (L, C, Mp), stats).  ``ab``
+    sync per order reads the loop condition; passI runs in the span
+    ``sos.first_order`` and each order in the span ``sos.order``.  Returns
+    (toa_dn, toa_up, srf_dn, srf_up (C, Mp), stats (3, C)), or with ``full`` (itot_dn, itot_up (L, C, Mp), stats).  ``ab``
     (STREAM_ABLATE_FLAGS) cuts stages out, as the TPU engine's loop does;
     results are wrong."""
     if i1dn is None:
-        fdn, fup = passI(pack, tiles, cpar, ops)
+        with span(FIRST_ORDER):
+            fdn, fup = passI(pack, tiles, cpar, ops)
     else:
         fdn, fup = i1dn, i1up
     L, C, Mp = fdn.shape

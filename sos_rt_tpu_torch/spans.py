@@ -28,6 +28,12 @@ scopes keep the JAX package's names (``sos.first_order``,
                      (``ops/megastream.py::solve_block``,
                      ``fused.solve_batch_fused``): one order of one block
 ``LOOP_COND``        each read of those loops' condition: one host sync
+``FIRST_ORDER``      the reference engine's first order, and passI's
+                     launch in ``ops/megastream.py::solve_block`` (on a
+                     specular surface the closed form with no surface
+                     product)
+``TABLES_BUILD``     ``models.build_phase_tables``: a build that the cache
+                     did not answer (the Mie series runs here)
 ===================  ====================================================
 """
 from __future__ import annotations
@@ -54,6 +60,7 @@ MEGA_PREPARE = "sos.mega.prepare"
 MEGA_SOLVE = "sos.mega.solve"
 ORDER = "sos.order"
 LOOP_COND = "sos.loop_cond"
+TABLES_BUILD = "sos.tables.build"
 
 RECORDED_CALL = "sos.recorded_call"     # the window of tools/profile.py's trace
 

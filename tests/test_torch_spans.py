@@ -6,9 +6,12 @@ once a chunk and ``sos.sweep.load`` once, and returns their seconds as
 ``stages_s``, and on a mesh one ``sos.mesh.gather`` a chunk and one
 ``sos.sweep.barrier``; the streamed mega solve and the fused engine record one
 ``sos.order`` an order of each block (the block's largest order count − 1)
-and one ``sos.loop_cond`` more a block; the mega route's sort, predictor,
-preparation and solve spans nest as their calls do.  Every result is the
-same to the bit with the profiler on and off.
+and one ``sos.loop_cond`` more a block, and one ``sos.first_order`` a
+block around passI; the mega route's sort, predictor, preparation and
+solve spans nest as their calls do; a phase-table build that the cache
+does not answer records ``sos.tables.build`` and counts in
+``build_phase_tables.builds``, a cached one counts in ``.cache_hits``.
+Every result is the same to the bit with the profiler on and off.
 """
 import dataclasses
 
@@ -194,3 +197,55 @@ def test_span_adds_its_seconds_into():
             raise ValueError
     assert sorted(stages) == [spans.SWEEP_LOAD, spans.SWEEP_SHARD]
     assert all(v >= 0 for v in stages.values())
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+def test_first_order_span_once_a_block_around_passI(inputs, monkeypatch, surface):
+    import sos_rt_tpu_torch.ops.megastream as ms
+    from torch.profiler import record_function
+
+    scenes, tables, opts = inputs
+    opts = dataclasses.replace(opts, surface=surface)
+    inner = ms.passI
+
+    def passI(*a, **kw):
+        with record_function("test.passI"):
+            return inner(*a, **kw)
+
+    monkeypatch.setattr(ms, "passI", passI)
+    solve = lambda: solve_batch_mega(scenes, tables, GRID, opts, cols_per_block=4,
+                                     sort=False, stream=True, outputs="summary", device="cpu")
+    off = solve()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = solve()
+    found = {}
+    for e in prof.events():
+        found.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    assert calls(found, spans.FIRST_ORDER) == calls(found, "test.passI") == 2
+    assert inside(found, "test.passI", spans.FIRST_ORDER)
+    assert not any(within(iv, found[spans.ORDER]) for iv in found[spans.FIRST_ORDER])
+    for f in ("i_toa", "i_surface", "n_orders", "converged"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+
+
+def test_tables_build_span_and_counters(tmp_path, monkeypatch):
+    """A cold build records ``sos.tables.build`` and counts a build; the
+    same tables again come from the cache, record no span and count a hit;
+    all three are the same bits."""
+    from sos_rt_tpu_torch.models import build_phase_tables
+
+    monkeypatch.setenv("SOS_RT_CACHE_DIR", str(tmp_path))
+    mu = GRID.mu()
+    build = lambda **kw: build_phase_tables("hg", mu, 0.5, g=0.7, **kw)
+    builds, hits = build_phase_tables.builds, build_phase_tables.cache_hits
+    cold, found = traced(build)
+    assert calls(found, spans.TABLES_BUILD) == 1
+    assert (build_phase_tables.builds, build_phase_tables.cache_hits) == (builds + 1, hits)
+    cached, found = traced(build)
+    assert calls(found, spans.TABLES_BUILD) == 0
+    assert (build_phase_tables.builds, build_phase_tables.cache_hits) == (builds + 1, hits + 1)
+    uncached = build(cache=False)
+    assert (build_phase_tables.builds, build_phase_tables.cache_hits) == (builds + 2, hits + 1)
+    for a, b in ((cold, cached), (cold, uncached)):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
