@@ -14,6 +14,9 @@ last; Mp = pad_angles(M)), and each scattering order runs two passes:
   and the µ→0⁺ smoothing walk.  Returns the new half-fields.
 
 :func:`passI` evaluates the closed-form first order that starts the loop.
+The order loop (:func:`solve_block`) gathers a block's still-running
+columns into narrower planes as columns converge, so both passes run only
+on the columns whose orders are still needed.
 With ``ab`` flags (:data:`PASS_A_FLAGS`, :data:`PASS_B_FLAGS`) passA and
 passB cut stages out for timing attribution (``tools/ablate_stream.py``;
 results are wrong): on a card they launch the ablated builds of
@@ -50,7 +53,7 @@ from sos_rt_tpu_torch.ops.megakernel import (
     band_validity, bc_matrix, make_i1_block, mega_call, ratio_rows_tile,
     split_parts, stencil_taps, tc_operator)
 from sos_rt_tpu_torch.ops.precision import split_bf16
-from sos_rt_tpu_torch.spans import FIRST_ORDER, LOOP_COND, ORDER, span
+from sos_rt_tpu_torch.spans import FIRST_ORDER, LOOP_COND, ORDER, ORDER_COMPACT, span
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _MM_CODE = {"highest": 0, "bf16x3": 1, "bf16x5": 2}
@@ -446,29 +449,50 @@ def reset_launches() -> None:
     for k in ABLATE_KERNELS:
         k.ablate_launches = 0
     mega_call.i1in_launches = 0
+    solve_block.compactions = solve_block.column_orders = 0
 
 
 # --------------------------------------------------------------------------
 # The order loop
 # --------------------------------------------------------------------------
 
-def _loop_on(ratio, n, tol: float, max_orders: int, ab: frozenset) -> bool:
-    """The order loop's condition, read with one host sync: any column's
-    ratio ≥ tol and no column at max_orders; under 'noconv' the second
-    alone, under 'sccond' column 0's count alone.  'sccond' without
-    'noconv' raises once column 0 has converged short of max_orders: its
-    count stops there, so that loop would never end (the TPU engine's
-    does not).  Each read runs in the span ``sos.loop_cond``."""
+# The streamed loop gathers the block's running columns into narrower planes
+# once at least 1/COMPACT_SHARE of the planes' width has stopped running
+# since the last gather (at least one column): a few gathers a block.
+COMPACT_SHARE = 8
+
+
+def _loop_on(ratio, n, tol: float, max_orders: int, ab: frozenset):
+    """The order loop's condition and the block's running columns, read
+    with one host sync: any column's ratio ≥ tol and no column at
+    max_orders; under 'noconv' the second alone, under 'sccond' column 0's
+    count alone.  'sccond' without 'noconv' raises once column 0 has
+    converged short of max_orders: its count stops there, so that loop
+    would never end (the TPU engine's does not).  Returns (go, running):
+    running lists, per block column, whether its ratio is still ≥ tol;
+    None under 'noconv', where every column counts every order.  Each read
+    runs in the span ``sos.loop_cond``."""
     with span(LOOP_COND):
         if "sccond" in ab:
-            go, stuck = torch.stack([n[0] < max_orders, ratio[0] < tol]).tolist()
-            if go and stuck and "noconv" not in ab:
-                raise RuntimeError("ablate 'sccond': column 0 converged before max_orders, "
-                                   "so the loop would never end; add 'noconv'")
-            return bool(go)
-        if "noconv" in ab:
-            return bool((n.max() < max_orders).item())
-        return bool(((ratio >= tol).any() & (n.max() < max_orders)).item())
+            head = [n[0] < max_orders, ratio[0] < tol]
+        elif "noconv" in ab:
+            head = [n.max() < max_orders]
+        else:
+            head = [(ratio >= tol).any() & (n.max() < max_orders)]
+        parts = [torch.stack(head)] + ([] if "noconv" in ab else [ratio >= tol])
+        flags = torch.cat(parts).tolist()
+        go = flags[0]
+        if "sccond" in ab and go and flags[1] and "noconv" not in ab:
+            raise RuntimeError("ablate 'sccond': column 0 converged before max_orders, "
+                               "so the loop would never end; add 'noconv'")
+        return go, (None if "noconv" in ab else flags[len(head):])
+
+
+def _index(ix: list, device: torch.device) -> torch.Tensor:
+    """Host indices as an int64 tensor on ``device``; to a card through
+    pinned memory, so the copy adds no host sync."""
+    t = torch.tensor(ix, dtype=torch.int64)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
 
 
 def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
@@ -482,29 +506,62 @@ def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
     while any column's ratio is ≥ tol and no column has reached
     max_orders; each column accumulates only while it is active, so its
     result does not depend on the other columns of the block.  One host
-    sync per order reads the loop condition; passI runs in the span
-    ``sos.first_order`` and each order in the span ``sos.order``.  Returns
-    (toa_dn, toa_up, srf_dn, srf_up (C, Mp), stats (3, C)), or with ``full`` (itot_dn, itot_up (L, C, Mp), stats).  ``ab``
-    (STREAM_ABLATE_FLAGS) cuts stages out, as the TPU engine's loop does;
-    results are wrong."""
+    sync per order reads the loop condition and which columns still run;
+    passI runs in the span ``sos.first_order`` and each order in the span
+    ``sos.order``.
+
+    Active-column compaction: once at least 1/COMPACT_SHARE of the planes'
+    columns has stopped running (ratio < tol), the order gathers the
+    running ones into narrower planes (``fdn``, ``fup``, the ``pack`` rows,
+    ``cpar``; span ``sos.order.compact``), so passA and passB run only on
+    them.  Per-column state (the four boundary rows, the ``full`` planes,
+    ratio, order count) keeps the block's width and is updated through the
+    planes' block columns ``idx``; a column leaves the planes only after it
+    has stopped accumulating, and every step is per column, so results do
+    not depend on the gathers.  ``solve_block.compactions`` counts the
+    gathers and ``solve_block.column_orders`` the planes' width summed over
+    orders (Σ(n − 1) of the block's columns where each gather is exact).
+
+    Returns (toa_dn, toa_up, srf_dn, srf_up (C, Mp), stats (3, C)), or with
+    ``full`` (itot_dn, itot_up (L, C, Mp), stats), in the block's column
+    order.  ``ab`` (STREAM_ABLATE_FLAGS) cuts stages out, as the TPU
+    engine's loop does; results are wrong.  Under 'noconv' every column
+    counts every order, so none leaves the planes."""
     if i1dn is None:
         with span(FIRST_ORDER):
             fdn, fup = passI(pack, tiles, cpar, ops)
     else:
         fdn, fup = i1dn, i1up
     L, C, Mp = fdn.shape
-    dtype = fdn.dtype
-    real = torch.arange(Mp, device=fdn.device) < ops.nb_angles
-    t_dn, t_up = fdn[0].clone(), fup[0].clone()
-    s_dn, s_up = fdn[L - 1].clone(), fup[L - 1].clone()
+    dtype, dev = fdn.dtype, fdn.device
+    real = torch.arange(Mp, device=dev) < ops.nb_angles
+    # the boundary rows: TOA down, TOA up, surface down, surface up (4, C, Mp)
+    edge = torch.stack([fdn[0], fup[0], fdn[L - 1], fup[L - 1]])
     acc = (fdn.clone(), fup.clone()) if full else None
-    ratio = torch.full((C,), 2.0 * tol, dtype=dtype, device=fdn.device)
-    n = torch.ones((C,), dtype=dtype, device=fdn.device)
+    ratio = torch.full((C,), 2.0 * tol, dtype=dtype, device=dev)
+    n = torch.ones((C,), dtype=dtype, device=dev)
+    cols = list(range(C))                # the planes' block columns, on the host
+    idx = torch.arange(C, device=dev)    # and on the device
     ab = frozenset(ab)
     ab_a, ab_b = ab & set(PASS_A_FLAGS), ab & set(PASS_B_FLAGS)
-    while _loop_on(ratio, n, tol, max_orders, ab):
+    while True:
+        go, running = _loop_on(ratio, n, tol, max_orders, ab)
+        if not go:
+            break
         with span(ORDER):
-            active = (ratio >= tol).to(dtype)
+            if running is not None:
+                keep = [j for j, c in enumerate(cols) if running[c]]
+                if len(cols) - len(keep) >= max(1, len(cols) // COMPACT_SHARE):
+                    with span(ORDER_COMPACT):
+                        sel = _index(keep, dev)
+                        fdn, fup = fdn.index_select(1, sel), fup.index_select(1, sel)
+                        pack, cpar = pack.index_select(2, sel), cpar.index_select(1, sel)
+                        idx = idx.index_select(0, sel)
+                        cols = [cols[j] for j in keep]
+                    solve_block.compactions += 1
+            solve_block.column_orders += len(cols)
+            ratio_c = ratio.index_select(0, idx)
+            active = (ratio_c >= tol).to(dtype)
             if "nopassA" in ab:
                 sdn, jnup = fdn, fup
             else:
@@ -515,23 +572,29 @@ def solve_block(pack, cpar, tiles, ops: StreamOps, *, tol: float,
                 fdn, fup = passB(pack, sdn, jnup, cpar, ops, ab_b)
             del sdn, jnup       # free two planes before the next passA allocates
             a2 = active[:, None]
+            edge_c = edge.index_select(1, idx)
             if "notiles" not in ab:
-                t_dn = t_dn + a2 * fdn[0]
-                t_up = t_up + a2 * fup[0]
-                s_dn = s_dn + a2 * fdn[L - 1]
-                s_up = s_up + a2 * fup[L - 1]
+                edge_c = edge_c + a2 * torch.stack([fdn[0], fup[0], fdn[L - 1], fup[L - 1]])
+                edge.index_copy_(1, idx, edge_c)
             if full:
-                acc[0].add_(a2 * fdn)
-                acc[1].add_(a2 * fup)
+                for a, f in zip(acc, (fdn, fup)):
+                    a.index_copy_(1, idx, a.index_select(1, idx).add_(a2 * f))
             if "noratio" not in ab:
-                rnew = ratio_rows_tile(fup[0], t_up, fdn[L - 1], s_dn, real)
-                ratio = torch.where(active > 0.5, rnew, ratio)
-            n = n + (1.0 if "noconv" in ab else active)
-    stats = torch.empty((3, C), dtype=dtype, device=fdn.device)
+                rnew = ratio_rows_tile(fup[0], edge_c[1], fdn[L - 1], edge_c[2], real)
+                ratio.index_copy_(0, idx, torch.where(active > 0.5, rnew, ratio_c))
+            if "noconv" in ab:
+                n = n + 1.0
+            else:
+                n.index_add_(0, idx, active)
+    stats = torch.empty((3, C), dtype=dtype, device=dev)
     stats[ST_N], stats[ST_CONV], stats[ST_RATIO] = n, (ratio < tol).to(dtype), ratio
     if full:
         return acc[0], acc[1], stats
-    return t_dn, t_up, s_dn, s_up, stats
+    return edge[0], edge[1], edge[2], edge[3], stats
+
+
+solve_block.compactions = 0      # gathers of the running columns
+solve_block.column_orders = 0    # Σ over orders of the planes' width
 
 
 def block_of(pack, cpar, tiles, i: int, cols_per_block: int):

@@ -27,6 +27,8 @@ scopes keep the JAX package's names (``sos.first_order``,
 ``ORDER``            one iteration of the host order loops
                      (``ops/megastream.py::solve_block``,
                      ``fused.solve_batch_fused``): one order of one block
+``ORDER_COMPACT``    ``solve_block``: one gather of a block's running
+                     columns into narrower planes, inside ``sos.order``
 ``LOOP_COND``        each read of those loops' condition: one host sync
 ``FIRST_ORDER``      the reference engine's first order, and passI's
                      launch in ``ops/megastream.py::solve_block`` (on a
@@ -59,6 +61,7 @@ MEGA_PREDICT = "sos.mega.predict"
 MEGA_PREPARE = "sos.mega.prepare"
 MEGA_SOLVE = "sos.mega.solve"
 ORDER = "sos.order"
+ORDER_COMPACT = "sos.order.compact"
 LOOP_COND = "sos.loop_cond"
 TABLES_BUILD = "sos.tables.build"
 

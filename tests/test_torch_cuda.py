@@ -50,6 +50,9 @@ M = 13, 64 and 501 (rows of odd length), on both call sites' layouts and on
 inputs that sit on the bf16 tie; whole float32 split-mode solves of both
 engines launch it once an order and agree with the CPU's plain solves as
 whole float32 loops do.
+The streamed loop's block that gathers its running columns as they
+converge equals, in float32 'bf16x3' and to the bit, the same columns
+solved one a block, at 56×64 and 501×800.
 """
 import dataclasses
 
@@ -314,6 +317,39 @@ def test_resident_equals_streamed_to_the_bit(cuda, dtype, outputs):
     assert torch.equal(a.converged, b.converged)
     field = "i_toa" if outputs == "summary" else "i_total"
     assert torch.equal(getattr(a, field), getattr(b, field))
+
+
+@pytest.mark.parametrize("surface", ["lambertian", "specular"])
+@pytest.mark.parametrize("grid", [GRID, GridSpec(501, 800)], ids=["56x64", "501x800"])
+def test_compacted_block_equals_one_column_blocks_to_the_bit(cuda, grid, surface):
+    """float32 'bf16x3', 16 columns whose order counts spread (ρ, τ*_aer,
+    ω_aer varied): solved as one block, which gathers its running columns
+    into narrower planes as they converge, its summary equals to the bit
+    the same columns solved one a block (which never gathers).  Each
+    product row sums its k16 blocks in the same order whatever the planes'
+    width, and every other step is per column."""
+    batch = 16      # every column's bands cover the 501 grid's small µ (mega_small_ok)
+    lin = lambda lo, hi: torch.linspace(lo, hi, batch, dtype=torch.float64, device=cuda)
+    scenes = dataclasses.replace(broadcast_scene(Scene(), batch, device=cuda),
+                                 grd_alb=lin(0.0, 0.9), tau_star_aer=lin(0.01, 1.0),
+                                 alb_aer=lin(0.8, 0.98))
+    tables = PhaseTables.from_models(grid, 0.5, aer=("hg", {"g": 0.7}),
+                                     dtype=torch.float32, device=cuda, cache=False)
+    opts = SolverOptions(surface=surface, dtype="float32", mm="bf16x3")
+    runs = []
+    for block in (batch, 1):
+        ms.reset_launches()
+        sol = solve_batch_mega(scenes, tables, grid, opts, cols_per_block=block,
+                               outputs="summary", sort=False, stream=True,
+                               allow_small=True, device=cuda)
+        runs.append((sol, ms.solve_block.compactions))
+    (a, gathers), (b, alone) = runs
+    assert gathers > 0 and alone == 0
+    assert int(a.n_orders.max()) >= 3 * int(a.n_orders.min())
+    assert torch.equal(a.n_orders, b.n_orders)
+    assert torch.equal(a.converged, b.converged)
+    assert torch.equal(a.i_toa, b.i_toa)
+    assert torch.equal(a.i_surface, b.i_surface)
 
 
 @pytest.mark.parametrize("mm", ["highest", "bf16x3"])

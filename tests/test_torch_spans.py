@@ -7,7 +7,9 @@ once a chunk and ``sos.sweep.load`` once, and returns their seconds as
 ``sos.sweep.barrier``; the streamed mega solve and the fused engine record one
 ``sos.order`` an order of each block (the block's largest order count − 1)
 and one ``sos.loop_cond`` more a block, and one ``sos.first_order`` a
-block around passI; the mega route's sort, predictor, preparation and
+block around passI; the streamed loop's gathers of a block's running
+columns (``solve_block.compactions``) each record ``sos.order.compact``
+inside ``sos.order``; the mega route's sort, predictor, preparation and
 solve spans nest as their calls do; a phase-table build that the cache
 does not answer records ``sos.tables.build`` and counts in
 ``build_phase_tables.builds``, a cached one counts in ``.cache_hits``.
@@ -23,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 from sos_rt_tpu_torch import presets, spans
 from sos_rt_tpu_torch.config import GridSpec, Scene, SolverOptions
 from sos_rt_tpu_torch.fused import predict_order_count, solve_batch_fused, solve_batch_mega
+from sos_rt_tpu_torch.ops import megastream as ms
 from sos_rt_tpu_torch.parallel import broadcast_scene
 from sos_rt_tpu_torch.solver import PhaseTables
 from sos_rt_tpu_torch.sweep import load_sweep, run_sweep
@@ -118,11 +121,14 @@ def test_streamed_order_spans(inputs, block):
     solve = lambda: solve_batch_mega(scenes, tables, GRID, opts, cols_per_block=block,
                                      sort=False, stream=True, outputs="full", device="cpu")
     off = solve()
+    ms.reset_launches()
     on, found = traced(solve)
     orders = block_orders(on.n_orders, block)
     assert len(set(on.n_orders.tolist())) > 1 and orders > 0
     assert calls(found, spans.ORDER) == orders
     assert calls(found, spans.LOOP_COND) == orders + 8 // block
+    assert calls(found, spans.ORDER_COMPACT) == ms.solve_block.compactions > 0
+    assert inside(found, spans.ORDER_COMPACT, spans.ORDER)
     assert calls(found, spans.MEGA_PREPARE) == calls(found, spans.MEGA_SOLVE) == 1
     assert calls(found, spans.MEGA_SORT) == 0
     for f in ("i_total", "n_orders", "converged"):
