@@ -41,9 +41,8 @@ from sos_rt_tpu_torch.ops.fused_source import (SPLIT_MODES, fused_source, mix_so
                                                source_columns, source_copy)
 from sos_rt_tpu_torch.ops.fused_sweeps import build_pack, down_sweep, up_sweep_smooth
 from sos_rt_tpu_torch.ops.source import source_operator
-from sos_rt_tpu_torch.ops.sweeps import (band_choice, polyfit_band_variants,
-                                         select_band_choice, small_mu_values,
-                                         small_mu_window, stencils_for)
+from sos_rt_tpu_torch.ops.sweeps import (DownFix, device_stencils, region_band_choices,
+                                         stencils_for)
 from sos_rt_tpu_torch.solver import PhaseTables, Solution
 from sos_rt_tpu_torch.spans import (DOWN_SWEEP, LOOP_COND, MEGA_PREDICT, MEGA_PREPARE,
                                     MEGA_SOLVE, MEGA_SORT, ORDER, SOURCE_JN, UP_SWEEP_BC,
@@ -322,9 +321,7 @@ def prepare_batch(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     alb_aer = cast(scenes.alb_aer)[None, :]
     coef_atm = torch.where(in_layer, w_atm[None, :] * alb_atm / 4.0, alb_atm / 4.0)
     coef_aer = torch.where(in_layer, w_aer[None, :] * alb_aer / 4.0, 0.0)
-    iu1 = neighbour_index(idx_up - 1, L)
-    choice_a = band_choice(torch.gather(tau, 1, iu1[:, None])[:, 0]).to(dtype)
-    choice_bc = band_choice(torch.gather(tau, 1, idx_down[:, None])[:, 0]).to(dtype)
+    choice_a, choice_bc = (c.to(dtype) for c in region_band_choices(tau, idx_up, idx_down))
     # localized affine-scan sources: down c_t = (hdt_dn+hdt_up)_t·jₙ_t;
     # up c_t = (d_t·hdt_up_t + gs_t)·ivup·jₙ_t, gs_t = d_{t-1}·hdt_up_{t-1}
     cdn = hdt_dn + hdt_up
@@ -504,13 +501,12 @@ class FusedBatch:
     Built from (B,)-batched ``scenes`` and ``tables`` already on
     ``device``: τ profiles and mixing weights, the first order ``i1``
     (B, L, 2M), the four source operators, the kernels' ``pack`` /
-    ``cparams`` / µ rows, the small-µ machinery and the band selection.
+    ``cparams`` / µ rows and the µ→0⁻ down-fix (``ops.sweeps.DownFix``).
     """
 
     def __init__(self, scenes: Scene, tables: PhaseTables, grid: GridSpec,
                  opts: SolverOptions, device):
         full_precision_matmul()
-        stencils = stencils_for(grid)
         dtype = torch_dtype(opts.dtype)
         L, M = grid.nb_layers, grid.nb_angles
         mu_np = np.asarray(grid.mu(), np.float64)
@@ -518,8 +514,7 @@ class FusedBatch:
         cast = lambda x: x.to(dtype)
         mu = on_dev(mu_np)
         w_mu = on_dev(grid.trapz_weights())
-        self.stencils, self.surface, self.dtype, self.device = (
-            stencils, opts.surface, dtype, device)
+        self.surface, self.dtype, self.device = opts.surface, dtype, device
         self.L, self.M, self.B = L, M, scenes.mu0.shape[0]
 
         # ---- per-column geometry ----
@@ -556,33 +551,13 @@ class FusedBatch:
             self.operators = (a_full_atm[:M], a_full_atm[M:], a_full_aer[:M],
                               a_full_aer[M:])
 
-        # ---- loop-invariant batched masks ----
-        t_idx = torch.arange(L, device=device)
-
+        # ---- loop invariants ----
         self.mu_down_safe = on_dev(np.where(mu_np[:M] == 0, -1.0, mu_np[:M]))
         self.mu_up_row = torch.cat([torch.zeros((1,), dtype=dtype, device=device),
                                     mu[M + 1:]])
         self.pack, self.cparams = build_pack(tau, idx_up, idx_down, dtype)
-
-        # small-µ machinery
-        self.small_cols = on_dev(stencils.small_cols, torch.long)
-        self.has_small = stencils.small_cols.size > 0
-        if self.has_small:
-            self.mu_s = mu[self.small_cols]
-            self.taylor_mask = on_dev(stencils.taylor_mask, torch.bool)
-            self.window = small_mu_window(tau, idx_up, idx_down, self.mu_s)
-
-        # polyfit band selection
-        iu1 = neighbour_index(idx_up - 1, L)
-        self.choice_a = band_choice(torch.gather(tau, 1, iu1[:, None])[:, 0])
-        self.choice_bc = band_choice(torch.gather(tau, 1, idx_down[:, None])[:, 0])
-        pmask = on_dev(stencils.poly_mask, torch.bool)
-        valid_a = select_band_choice(pmask, self.choice_a[:, None])   # (B, band_max)
-        valid_bc = select_band_choice(pmask, self.choice_bc[:, None])
-        self.in_a_col = (t_idx[None, :] < idx_up[:, None])[..., None]
-        self.band_valid = torch.where(self.in_a_col, valid_a[:, None, :],
-                                      valid_bc[:, None, :])
-        self.band_cols = M - 1 - torch.arange(stencils.band_max, device=device)
+        self.down_fix = DownFix.build(device_stencils(grid, tau.device, dtype), tau,
+                                      idx_up, idx_down, mu)
 
         self.mirror_bc = torch.arange(M - 2, -1, -1, device=device)   # cols M-2..0
         self.grd = cast(scenes.grd_alb)
@@ -600,19 +575,7 @@ class FusedBatch:
     def narrow_down_fixes(self, raw, jn):
         """The small-µ columns (windowed value or Taylor limit), the zeroed
         µ=0⁻ column and the polyfit band, written into ``raw`` in place."""
-        M = self.M
-        if self.has_small:
-            raw[:, :, self.small_cols] = small_mu_values(
-                jn[:, :, self.small_cols], raw[:, :, self.small_cols], self.mu_s,
-                self.taylor_mask, self.window)
-        raw[:, :, M - 1] = 0.0
-        polys, _ = polyfit_band_variants(raw, self.stencils)  # (4, B, L, band_max)
-        poly = torch.where(self.in_a_col,
-                           select_band_choice(polys, self.choice_a[:, None, None]),
-                           select_band_choice(polys, self.choice_bc[:, None, None]))
-        cur = raw[:, :, self.band_cols]
-        raw[:, :, self.band_cols] = torch.where(self.band_valid, poly, cur)
-        return raw
+        return self.down_fix.apply(raw, jn)
 
     def surface_bc(self, dn):
         """The upward sweep's boundary row (B, M) from the new I↓ at the

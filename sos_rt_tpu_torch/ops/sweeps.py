@@ -14,10 +14,13 @@ as the TPU package, or as a loop over layers.  Also here:
 - the µ→0⁻ polyfit band (SOS_Aer_In_limit.py:113-141) has four possible
   static widths (main_lambertian.py:344-347); its np.polyfit stencils are
   precomputed per width and selected per column by τ thresholds
-  (:func:`polyfit_band_variants` / :func:`select_band_choice`);
+  (:func:`polyfit_band_variants` / :func:`select_band_choice`,
+  :func:`region_band_choices`);
 - the small-µ column set (|µ| < 0.01), its Taylor mask and the windowed
   asymptotic integral over it (:func:`small_mu_window`,
   :func:`down_small_mu`);
+- the whole µ→0⁻ down-fix of every host-loop engine, :class:`DownFix`, on
+  the stencils copied to the device once (:func:`device_stencils`);
 - the µ→0⁺ smoothing walk as a first-index reduction and one-hot
   reductions per row (:func:`smooth_up_rows`).
 
@@ -29,13 +32,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
 
 from sos_rt_tpu_torch.config import (MU_THRESHOLD, MU_VERY_SMALL_THRESHOLD,
                                      full_precision_matmul)
+from sos_rt_tpu_torch.grids import neighbour_index
 
 SMOOTH_TOL = 1e-4   # second-difference walk threshold (main_lambertian.py:406)
 EXP_CLAMP = -80.0   # clamp for masked-out exponents
@@ -127,6 +131,44 @@ def build_stencils(mu: np.ndarray, nb_angles: int) -> SweepStencils:
                          small_cols=small, taylor_mask=taylor)
 
 
+@dataclasses.dataclass(frozen=True)
+class DeviceStencils:
+    """The arrays of :class:`SweepStencils` as tensors on one device, the
+    weights in one compute dtype (cast from float64), and the band's target
+    columns M-1, M-2, ... (``band_cols``).  Each band width's weights and
+    source columns are a tensor of their own, as the products read them."""
+
+    nb_angles: int
+    band_max: int
+    has_small: bool
+    poly_w: Tuple[torch.Tensor, ...]    # 4 × (band_max, 6)
+    poly_src: Tuple[torch.Tensor, ...]  # 4 × (6,) int64
+    poly_mask: torch.Tensor       # (4, band_max) bool
+    small_cols: torch.Tensor      # (S,) int64
+    taylor_mask: torch.Tensor     # (S,) bool
+    band_cols: torch.Tensor       # (band_max,) int64
+
+
+def stencils_on(stencils: SweepStencils, device, dtype) -> DeviceStencils:
+    """``stencils`` copied to ``device``, the weights in ``dtype``."""
+    on = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
+    m = stencils.nb_angles
+    return DeviceStencils(
+        nb_angles=m, band_max=stencils.band_max,
+        has_small=stencils.small_cols.size > 0,
+        poly_w=tuple(on(w, dtype) for w in stencils.poly_w),
+        poly_src=tuple(on(c) for c in stencils.poly_src), poly_mask=on(stencils.poly_mask),
+        small_cols=on(stencils.small_cols), taylor_mask=on(stencils.taylor_mask),
+        band_cols=m - 1 - torch.arange(stencils.band_max, device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def device_stencils(grid, device, dtype) -> DeviceStencils:
+    """The grid's stencils on ``device`` in ``dtype``, copied there once per
+    (grid, device, dtype) and shared by every solve after."""
+    return stencils_on(stencils_for(grid), device, dtype)
+
+
 def band_choice(tau_ref):
     """Index into the four band widths (main_lambertian.py:344-347)."""
     return torch.where(tau_ref <= 0.0625, 0,
@@ -134,20 +176,30 @@ def band_choice(tau_ref):
                                    torch.where(tau_ref < 4.0, 2, 3)))
 
 
-def polyfit_band_variants(i_down, stencils: SweepStencils):
+def region_band_choices(tau, idx_up, idx_down):
+    """The band choices (B,) of each column's two regions
+    (main_lambertian.py:344-349): above the aerosol layer
+    band_choice(τ[idx_up − 1]) (read through :func:`~sos_rt_tpu_torch.grids.
+    neighbour_index`, as the JAX package reads it), in and below it
+    band_choice(τ[idx_down]).  tau (B, L), idx_* (B,)."""
+    at = lambda idx: torch.gather(tau, 1, idx[:, None])[:, 0]
+    return (band_choice(at(neighbour_index(idx_up - 1, tau.shape[1]))),
+            band_choice(at(idx_down)))
+
+
+def polyfit_band_variants(i_down, stencils: DeviceStencils):
     """Extrapolated band values for all four static band widths.
 
-    ``i_down`` is (..., M) with any leading (column, layer) axes.  Returns
-    (polys (4, ..., band_max), valids (4, band_max)); the caller selects
-    by the per-column band choice (:func:`select_band_choice`)."""
+    ``i_down`` is (..., M) with any leading (column, layer) axes and
+    ``stencils`` on its device in its dtype (:func:`device_stencils`).
+    Returns (polys (4, ..., band_max), valids (4, band_max)); the caller
+    selects by the per-column band choice (:func:`select_band_choice`)."""
+    if not isinstance(stencils, DeviceStencils):
+        raise TypeError("polyfit_band_variants takes device stencils "
+                        "(ops.sweeps.device_stencils), not host arrays")
     full_precision_matmul()
-    dev = i_down.device
-    polys = []
-    for c in range(4):
-        src = torch.as_tensor(stencils.poly_src[c], device=dev)
-        w = torch.as_tensor(stencils.poly_w[c], dtype=i_down.dtype, device=dev)
-        polys.append(i_down[..., src] @ w.T)
-    return torch.stack(polys), torch.as_tensor(stencils.poly_mask, device=dev)
+    polys = [i_down[..., stencils.poly_src[c]] @ stencils.poly_w[c].T for c in range(4)]
+    return torch.stack(polys), stencils.poly_mask
 
 
 def select_band_choice(stacked, choice):
@@ -315,6 +367,73 @@ def down_small_mu(jn_small, raw_small, tau, mu_small, taylor_mask,
     (S,) bool, idx_* (B,)."""
     window = small_mu_window(tau, idx_up, idx_down, mu_small)
     return small_mu_values(jn_small, raw_small, mu_small, taylor_mask, window)
+
+
+# --------------------------------------------------------------------------
+# The µ→0⁻ down-fix
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DownFix:
+    """The µ→0⁻ fixes of one solve's downward fields, written by
+    :meth:`apply`: the small-µ columns' windowed value or Taylor limit
+    (SOS_Aer_In_limit.py:70-109), the zeroed µ=0⁻ column, and the polyfit
+    band of each row's region (SOS_Aer_In_limit.py:113-141).  Its masks are
+    loop invariants, built once by :meth:`build`."""
+
+    stencils: DeviceStencils
+    choice: Any                   # (B, L, 1) band choice of each row
+    band_valid: Any               # (B, L, band_max) the choice's targets
+    mu_small: Any = None          # (S,), on grids with small-µ columns
+    window: Any = None            # small_mu_window's tuple, likewise
+
+    @classmethod
+    def build(cls, stencils: DeviceStencils, tau, idx_up, idx_down, mu,
+              choice=None) -> "DownFix":
+        """The fix of (B,)-batched columns: ``tau`` (B, L), ``idx_*`` (B,),
+        ``mu`` the (2M,) µ row, all in the compute dtype of ``stencils``.
+        The rows above the aerosol layer take its first region band choice
+        (:func:`region_band_choices`), the others its second; a (B,)
+        ``choice`` holds on every row instead (the single-layer slab, which
+        has no regions)."""
+        B, L = tau.shape
+        if choice is None:
+            choice_a, choice_bc = region_band_choices(tau, idx_up, idx_down)
+            above = torch.arange(L, device=tau.device)[None, :] < idx_up[:, None]
+            choice = torch.where(above, choice_a[:, None], choice_bc[:, None])
+        else:
+            choice = choice[:, None].expand(B, L)
+        mu_small = window = None
+        if stencils.has_small:
+            mu_small = mu[stencils.small_cols]
+            window = small_mu_window(tau, idx_up, idx_down, mu_small)
+        return cls(stencils, choice[..., None], stencils.poly_mask[choice], mu_small,
+                   window)
+
+    def rows(self, own: slice) -> "DownFix":
+        """The fix of the layers ``own`` alone (one shard of the layer
+        axis).  The small-µ window reads layers outside any one shard, so a
+        grid with small-µ columns has no such fix."""
+        if self.window is not None:
+            raise ValueError("the small-µ window reads layers outside the rows")
+        return dataclasses.replace(self, choice=self.choice[:, own],
+                                   band_valid=self.band_valid[:, own])
+
+    def apply(self, raw, jn):
+        """Write the fixes into ``raw`` (B, L, M), the scan's downward field,
+        in place and return it; ``jn`` (B, L, ≥ M) is the order's source,
+        whose first M columns are the downward half."""
+        st = self.stencils
+        if st.has_small:
+            c = st.small_cols
+            raw[:, :, c] = small_mu_values(jn[:, :, c], raw[:, :, c], self.mu_small,
+                                           st.taylor_mask, self.window)
+        raw[:, :, st.nb_angles - 1] = 0.0
+        polys, _ = polyfit_band_variants(raw, st)       # (4, B, L, band_max)
+        poly = select_band_choice(polys, self.choice)
+        raw[:, :, st.band_cols] = torch.where(self.band_valid, poly,
+                                              raw[:, :, st.band_cols])
+        return raw
 
 
 # --------------------------------------------------------------------------

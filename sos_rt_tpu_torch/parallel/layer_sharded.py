@@ -33,8 +33,8 @@ from sos_rt_tpu_torch.config import (GridSpec, Scene, SolverOptions, full_precis
 from sos_rt_tpu_torch.grids import neighbour_index, tau_profile
 from sos_rt_tpu_torch.ops.first_order import first_order
 from sos_rt_tpu_torch.ops.source import source_operator
-from sos_rt_tpu_torch.ops.sweeps import (band_choice, polyfit_band_variants,
-                                         select_band_choice, smooth_up_rows, stencils_for)
+from sos_rt_tpu_torch.ops.sweeps import (DownFix, device_stencils, smooth_up_rows,
+                                         stencils_for)
 from sos_rt_tpu_torch.parallel.layer_scan import local_affine_scan
 from sos_rt_tpu_torch.parallel.mesh import all_gather_rows, mesh_axis, mesh_device
 from sos_rt_tpu_torch.solver import PhaseTables, Solution, _columns, _ratio, _unbatched
@@ -59,8 +59,7 @@ def solve_column_layer_sharded(scene: Scene, tables: PhaseTables, grid: GridSpec
     ``i_total`` gathered to the full (L, 2M).  Raises ``ValueError`` for a
     grid with small-µ columns (:func:`layer_sharded_supported`) and for L
     not divisible by the axis size."""
-    stencils = stencils_for(grid)
-    if not layer_sharded_supported(grid, stencils):
+    if not layer_sharded_supported(grid):
         raise ValueError("layer-sharded solve requires a grid without live small-µ "
                          "columns (same eligibility as the mega kernel)")
     ax = mesh_axis(mesh, axis)
@@ -93,7 +92,7 @@ def solve_column_layer_sharded(scene: Scene, tables: PhaseTables, grid: GridSpec
     a_aer = source_operator(tables.p_aer.to(dtype), w_mu)
 
     iu, idn = int(idx_up[0]), int(idx_down[0])
-    iu1, id1 = int(neighbour_index(idx_up - 1, L)[0]), int(neighbour_index(idx_down + 1, L)[0])
+    id1 = int(neighbour_index(idx_down + 1, L)[0])
     t_idx = torch.arange(L, device=device)[:, None]                   # (L, 1)
     mu_d, mu_u = mu[:M], mu[M + 1:]
     safe_mu_d = torch.where(mu_d == 0, -1.0, mu_d)
@@ -109,25 +108,18 @@ def solve_column_layer_sharded(scene: Scene, tables: PhaseTables, grid: GridSpec
     join = (t_idx == idn) | (t_idx == iu - 1) | (t_idx == L - 1)
     c_up = torch.where(join, 0.0, 0.5 * dtau_next / mu_u)
     in_layer = (t_idx >= iu) & (t_idx <= idn)
+    down_fix = DownFix.build(device_stencils(grid, tau.device, dtype), tau, idx_up,
+                             idx_down, mu).rows(own)
     tau_at = lambda i: tau[:, i:i + 1]                                 # (1, 1)
-    choice_a = band_choice(tau_at(iu1))[:, :, None]                    # (1, 1, 1)
-    choice_bc = band_choice(tau_at(idn))[:, :, None]
-    poly_mask = torch.as_tensor(stencils.poly_mask, device=device)
-    valid_a = select_band_choice(poly_mask, choice_a[:, 0])
-    valid_bc = select_band_choice(poly_mask, choice_bc[:, 0])
-    in_a_col = t_idx < iu
-    band_valid = torch.where(in_a_col, valid_a[:, None, :], valid_bc[:, None, :])
-    band_cols = M - 1 - torch.arange(stencils.band_max, device=device)
     mirror_up = 2 * M - 1 - torch.arange(M + 1, 2 * M, device=device)
     lamb_w = w_mu[:M] * mu[:M]
     att_join1 = torch.exp(-torch.clamp(tau_at(id1) - tau, min=0.0)[:, :, None] / mu_u)
     att_join2 = torch.exp(-torch.clamp(tau_at(iu) - tau, min=0.0)[:, :, None] / mu_u)
     mask_join1, mask_join2 = t_idx <= idn, t_idx < iu
     loc = lambda x: x[:, own] if x.dim() == 3 else x[own]
-    (a_down, a_up, c_up, in_layer, in_a_col, band_valid, dtau_prev, att_join1,
-     att_join2, mask_join1, mask_join2) = map(loc, (
-        a_down, a_up, c_up, in_layer, in_a_col, band_valid, dtau_prev, att_join1,
-        att_join2, mask_join1, mask_join2))
+    (a_down, a_up, c_up, in_layer, dtau_prev, att_join1, att_join2, mask_join1,
+     mask_join2) = map(loc, (a_down, a_up, c_up, in_layer, dtau_prev, att_join1,
+                             att_join2, mask_join1, mask_join2))
     alb_atm, alb_aer = sc.alb_atm[:, None, None], sc.alb_aer[:, None, None]
     wa, wr, grd = w_atm[:, None, None], w_aer[:, None, None], sc.grd_alb[:, None]
     first, last = place == 0, place == d - 1
@@ -157,14 +149,7 @@ def solve_column_layer_sharded(scene: Scene, tables: PhaseTables, grid: GridSpec
         jn_d = jn[:, :, :M]
         jn_prev = torch.cat([halo(jn_d[:, -1], place - 1), jn_d[:, :-1]], dim=1)
         b = 0.5 * dtau_prev * (jn_prev * a_down + jn_d)
-        raw = -local_affine_scan(a_down, b, ax) / safe_mu_d
-        raw[:, :, M - 1] = 0.0
-        polys, _ = polyfit_band_variants(raw, stencils)
-        poly = torch.where(in_a_col, select_band_choice(polys, choice_a),
-                           select_band_choice(polys, choice_bc))
-        cur = raw[:, :, band_cols]
-        raw[:, :, band_cols] = torch.where(band_valid, poly, cur)
-        return raw
+        return down_fix.apply(-local_affine_scan(a_down, b, ax) / safe_mu_d, jn_d)
 
     def compute_up(jn, down):
         surf = row_at(down, L - 1)                                     # (1, M)

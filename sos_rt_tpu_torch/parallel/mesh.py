@@ -122,14 +122,14 @@ def order_count_score(scenes: Scene):
 
 def mega_small_ok(scenes: Scene, grid: GridSpec) -> bool:
     """True when the mega path may run a grid with small-µ columns: for
-    EVERY column, both region band choices (band_choice(τ[idx_up-1]) and
-    band_choice(τ[idx_down]), main_lambertian.py:344-349) select a
+    EVERY column, both region band choices (``ops.sweeps.
+    region_band_choices``, main_lambertian.py:344-349) select a
     polyfit band that covers the whole small-µ set, so the windowed /
     Taylor values would be overwritten anyway.  True for grids without
     small-µ columns."""
-    from sos_rt_tpu_torch.grids import neighbour_index, tau_profile
+    from sos_rt_tpu_torch.grids import tau_profile
     from sos_rt_tpu_torch.ops.megakernel import band_covers_small
-    from sos_rt_tpu_torch.ops.sweeps import band_choice, stencils_for
+    from sos_rt_tpu_torch.ops.sweeps import region_band_choices, stencils_for
 
     stencils = stencils_for(grid)
     if stencils.small_cols.size == 0:
@@ -140,10 +140,8 @@ def mega_small_ok(scenes: Scene, grid: GridSpec) -> bool:
     tau, iu, idn = tau_profile(scenes.tau_star_atm, scenes.tau_star_aer,
                                scenes.z0, scenes.z_up, scenes.z_down,
                                grid.nb_layers)
-    tau = tau.reshape(-1, grid.nb_layers)
-    iu1 = neighbour_index(iu.reshape(-1) - 1, grid.nb_layers)
-    ca = band_choice(torch.gather(tau, 1, iu1[:, None]))
-    cb = band_choice(torch.gather(tau, 1, idn.reshape(-1)[:, None]))
+    ca, cb = region_band_choices(tau.reshape(-1, grid.nb_layers), iu.reshape(-1),
+                                 idn.reshape(-1))
     choices = set(torch.cat([ca, cb]).unique().tolist())
     return choices.issubset(ok)
 

@@ -30,10 +30,9 @@ from sos_rt_tpu_torch.config import (GridSpec, MU0_RESONANCE_TOL, SolverOptions,
                                      full_precision_matmul, resolve_device,
                                      torch_dtype)
 from sos_rt_tpu_torch.ops.source import source_operator
-from sos_rt_tpu_torch.ops.sweeps import (band_choice, down_sweep_scan,
-                                         polyfit_band_variants, select_band_choice,
-                                         small_mu_values, small_mu_window,
-                                         smooth_up_rows, stencils_for, up_sweep_scan)
+from sos_rt_tpu_torch.ops.sweeps import (DownFix, band_choice, device_stencils,
+                                         down_sweep_scan, smooth_up_rows, stencils_on,
+                                         up_sweep_scan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +86,6 @@ def solve_single_layer(mu0, tau_star, tables, grid: GridSpec, opts: SolverOption
     ``device`` defaults to CUDA."""
     full_precision_matmul()
     device = resolve_device(device)
-    if stencils is None:
-        stencils = stencils_for(grid)
     dtype = torch_dtype(opts.dtype)
     L, M = grid.nb_layers, grid.nb_angles
     on_dev = lambda x, dt=dtype: torch.as_tensor(x, dtype=dt, device=device)
@@ -102,18 +99,13 @@ def solve_single_layer(mu0, tau_star, tables, grid: GridSpec, opts: SolverOption
 
     a_op = source_operator(p, w_mu)
     mu_d, mu_u = mu[:M], mu[M + 1:]
-    small_cols = torch.as_tensor(stencils.small_cols, device=device)
-    has_small = stencils.small_cols.size > 0
-    if has_small:
-        # no region joins: the region starts lie beyond the slab
-        mu_s = mu[small_cols]
-        taylor_mask = torch.as_tensor(stencils.taylor_mask, device=device)
-        beyond = torch.tensor([L + 1], device=device)
-        window = small_mu_window(tau[None], beyond, beyond + 1, mu_s)
-    choice = band_choice(tau_star)
-    band_valid = select_band_choice(torch.as_tensor(stencils.poly_mask, device=device),
-                                    choice)
-    band_cols = M - 1 - torch.arange(stencils.band_max, device=device)
+    st = (device_stencils(grid, mu.device, dtype) if stencils is None
+          else stencils_on(stencils, mu.device, dtype))
+    # no regions: the region starts lie beyond the slab, and one band choice,
+    # band_choice(τ*), holds on every row
+    beyond = torch.tensor([L + 1], device=device)
+    down_fix = DownFix.build(st, tau[None], beyond, beyond + 1, mu,
+                             choice=band_choice(tau_star).reshape(1))
     # no region joins, no surface reflection: join indices out of range
     no_join = torch.tensor(-5, device=device)
     bc_zero = torch.zeros((M - 1,), dtype=dtype, device=device)
@@ -121,14 +113,7 @@ def solve_single_layer(mu0, tau_star, tables, grid: GridSpec, opts: SolverOption
     def order_step(in_prev):
         jn = (alb / 4.0) * (in_prev @ a_op)
         raw = down_sweep_scan(jn[:, :M], tau, mu_d, method=opts.scan_impl)
-        if has_small:
-            raw[:, small_cols] = small_mu_values(
-                jn[None][:, :, small_cols], raw[None][:, :, small_cols], mu_s,
-                taylor_mask, window)[0]
-        raw[:, M - 1] = 0.0
-        polys, _ = polyfit_band_variants(raw, stencils)
-        poly = select_band_choice(polys, choice)
-        raw[:, band_cols] = torch.where(band_valid[None, :], poly, raw[:, band_cols])
+        down_fix.apply(raw[None], jn[None])
         up_raw = up_sweep_scan(jn[:, M + 1:], tau, mu_u, bc_zero, no_join, no_join,
                                method=opts.scan_impl)
         field = torch.cat([raw, jn[:, M:M + 1], up_raw], dim=1)

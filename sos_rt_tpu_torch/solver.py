@@ -48,15 +48,12 @@ from sos_rt_tpu_torch.ops.fused_source import (SPLIT_MODES, fused_source, mix_so
 from sos_rt_tpu_torch.ops.precision import make_split_dot
 from sos_rt_tpu_torch.ops.source import source_operator
 from sos_rt_tpu_torch.ops.sweeps import (
+    DownFix,
     SweepStencils,
     _affine_scan,
-    band_choice,
-    polyfit_band_variants,
-    select_band_choice,
-    small_mu_values,
-    small_mu_window,
+    device_stencils,
     smooth_up_rows,
-    stencils_for,
+    stencils_on,
 )
 from sos_rt_tpu_torch.spans import DOWN_SWEEP, FIRST_ORDER, SOURCE_JN, UP_SWEEP_BC, span
 
@@ -169,8 +166,6 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     the source operators' columns and all-gather Jₙ every order
     (``solve_batch(mesh=, shard_tables=True)``)."""
     full_precision_matmul()
-    if stencils is None:
-        stencils = stencils_for(grid)
     dtype = torch_dtype(opts.dtype)
     device = scenes.mu0.device
     L, M = grid.nb_layers, grid.nb_angles
@@ -211,28 +206,15 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
     a_up_full = torch.cat([att_u, torch.ones((B, 1, M - 1), dtype=dtype,
                                              device=device)], dim=1)
 
-    # small-µ window (loop-invariant; see ops.sweeps.small_mu_window)
-    small_cols = torch.as_tensor(stencils.small_cols, device=device)
-    has_small = stencils.small_cols.size > 0
-    if has_small:
-        mu_s = mu[small_cols]
-        taylor_mask = torch.as_tensor(stencils.taylor_mask, device=device)
-        window = small_mu_window(tau, idx_up, idx_down, mu_s)
-
-    # polyfit band selection (loop-invariant masks)
-    at = lambda idx: torch.gather(tau, 1, idx[:, None])          # (B, 1)
-    # the neighbour layers of the aerosol layer (L − 1 at an edge)
-    iu1, id1 = neighbour_index(idx_up - 1, L), neighbour_index(idx_down + 1, L)
-    choice_a = band_choice(at(iu1))[:, :, None]                  # (B, 1, 1)
-    choice_bc = band_choice(at(idx_down))[:, :, None]
-    poly_mask = torch.as_tensor(stencils.poly_mask, device=device)
-    valid_a = select_band_choice(poly_mask, choice_a[:, 0])      # (B, band_max)
-    valid_bc = select_band_choice(poly_mask, choice_bc[:, 0])
-    in_a_col = (t_idx < iu)[:, :, None]
-    band_valid = torch.where(in_a_col, valid_a[:, None, :], valid_bc[:, None, :])
-    band_cols = M - 1 - torch.arange(stencils.band_max, device=device)
+    # the µ→0⁻ small-µ and polyfit-band fixes (loop-invariant masks)
+    st = (device_stencils(grid, device, dtype) if stencils is None
+          else stencils_on(stencils, device, dtype))
+    down_fix = DownFix.build(st, tau, idx_up, idx_down, mu)
 
     # upward BC machinery
+    at = lambda idx: torch.gather(tau, 1, idx[:, None])          # (B, 1)
+    # the neighbour layer below the aerosol layer (L − 1 at an edge)
+    id1 = neighbour_index(idx_down + 1, L)
     mirror_up = 2 * M - 1 - torch.arange(M + 1, 2 * M, device=device)
     lamb_w = w_mu[:M] * mu[:M]
     # smoothing-join chain attenuations (region joins r1=idx_down+1, r2=idx_up)
@@ -275,18 +257,7 @@ def _setup_column(scenes: Scene, tables: PhaseTables, grid: GridSpec,
         b = torch.cat([zeros_d, 0.5 * dtau_g * (jn_d[:, :-1] * att_d + jn_d[:, 1:])],
                       dim=1)
         s = _affine_scan(a_down_full, b, method=opts.scan_impl)
-        raw = -s / safe_mu_d
-        if has_small:
-            raw[:, :, small_cols] = small_mu_values(
-                jn_d[:, :, small_cols], raw[:, :, small_cols], mu_s, taylor_mask,
-                window)
-        raw[:, :, M - 1] = 0.0
-        polys, _ = polyfit_band_variants(raw, stencils)
-        poly = torch.where(in_a_col, select_band_choice(polys, choice_a),
-                           select_band_choice(polys, choice_bc))
-        cur = raw[:, :, band_cols]
-        raw[:, :, band_cols] = torch.where(band_valid, poly, cur)
-        return raw
+        return down_fix.apply(-s / safe_mu_d, jn_d)
 
     def compute_up(jn, down_final):
         surf = down_final[:, L - 1]

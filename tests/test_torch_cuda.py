@@ -656,6 +656,36 @@ def test_down_sweep_at_the_fused_canonical_block(cuda):
                        got)
 
 
+def test_fused_order_step_copies_nothing_to_the_card_in_the_down_sweep(cuda):
+    """One order step at the fused_canonical block (B = 64, 501×800, float32)
+    under torch.profiler: the down sweep's span launches kernels and copies
+    nothing from the host (the µ→0⁻ fix reads the stencils that
+    ops.sweeps.device_stencils copied to the card once)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sos_rt_tpu_torch.spans import DOWN_SWEEP
+
+    fb, _ = _second_order(cuda, torch.float32, GridSpec(501, 800), batch=64)
+    m = 501
+    dn, up = fb.i1[:, :, :m], fb.i1[:, :, m:]
+    fb.order_step(dn, up)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fb.order_step(dn, up)
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    spans = [(e.time_range.start, e.time_range.end) for e in host if e.name == DOWN_SWEEP]
+    calls = [e for e in host if e.name.startswith("cu")
+             and any(a <= e.time_range.start <= b for a, b in spans)]
+    copies = {e.id for e in calls if "Memcpy" in e.name}
+    htod = [e.name for e in events if e.device_type != DeviceType.CPU and e.id in copies
+            and "HtoD" in e.name]
+    assert len(spans) == 1 and any("Launch" in e.name for e in calls)
+    assert htod == [] and copies == set(), sorted(e.name for e in calls)
+
+
 @pytest.mark.parametrize("grid", [GRID, GridSpec(51, 24, spacing="gauss")],
                          ids=["uniform", "gauss"])
 @pytest.mark.parametrize("surface", ["lambertian", "specular"])

@@ -188,7 +188,8 @@ def test_band_functions_match_jax(grid):
         np.testing.assert_array_equal(getattr(st, f), getattr(jst, f))
     assert (st.band_max, st.bands) == (jst.band_max, jst.bands)
     field = rng.normal(size=(2, grid.nb_layers, m))
-    polys, valids = sw.polyfit_band_variants(torch.as_tensor(field), st)
+    polys, valids = sw.polyfit_band_variants(torch.as_tensor(field),
+                                             sw.stencils_on(st, "cpu", torch.float64))
     for b in range(2):
         jp, jv = jsw.polyfit_band_variants(jnp.asarray(field[b]), jst)
         assert_close_scaled(polys[:, b].numpy(), jp, rtol=1e-12, atol_scale=1e-14)
